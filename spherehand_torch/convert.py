@@ -5,8 +5,12 @@
   HWIO -> ``weight`` OIHW, GroupNorm ``scale``/``bias`` -> ``weight``/``bias``,
   Dense ``kernel`` -> ``weight.T``; the flax path ``a/b/c`` names the module
   attribute ``a.b.c``.
-- Denoiser: ``assets/pose_denoiser.npz`` is already in PyTorch layout, keyed
-  by the reference ``nn.Sequential`` indices.
+- Denoiser and pose VAE: ``assets/pose_denoiser.npz`` and
+  ``assets/pose_vae.npz`` are already in PyTorch layout, keyed by the
+  reference ``nn.Sequential`` indices.
+- Back to flax: :func:`flax_arrays` maps a ``HourglassNet`` state (weights
+  or gradients) onto the flax keys and layouts, so that the port's
+  gradients compare with the JAX package's.
 
 Each conversion consumes every source array and sets every module parameter
 and buffer, or raises.
@@ -21,6 +25,13 @@ from torch import nn
 DENOISER_LAYERS = {
     "network/0": "l0.dense", "network/1": "l0.gn",
     "network/3": "l1.dense", "network/4": "l1.gn", "network/6": "out",
+}
+# Reference nn.Sequential index -> PoseVae submodule.
+VAE_LAYERS = {
+    "base/0": "enc0.dense", "base/1": "enc0.gn", "base/3": "enc1.dense",
+    "base/4": "enc1.gn", "mu": "mu", "logvar": "logvar",
+    "decoder/0": "dec0.dense", "decoder/1": "dec0.gn", "decoder/3": "dec1.dense",
+    "decoder/4": "dec1.gn", "decoder/6": "dec_out",
 }
 
 
@@ -69,6 +80,45 @@ def hourglass_state_dict(params: dict) -> dict[str, torch.Tensor]:
 
 def load_hourglass(module: nn.Module, params: dict) -> nn.Module:
     _load_exact(module, hourglass_state_dict(params))
+    return module
+
+
+def flax_arrays(named: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """``HourglassNet`` entries ({'a.b.weight': tensor}, e.g. parameters or
+    their gradients) -> {'a/b/kernel': array} in flax layout: conv weight
+    OIHW -> kernel HWIO, GroupNorm weight -> scale."""
+    out = {}
+    for name, tensor in named.items():
+        *mods, leaf = name.split(".")
+        array = tensor.detach().cpu().numpy()
+        if leaf == "weight" and array.ndim == 4:
+            leaf, array = "kernel", array.transpose(2, 3, 1, 0)
+        elif leaf == "weight" and array.ndim == 1:
+            leaf = "scale"
+        elif leaf != "bias":
+            raise ValueError(f"no flax counterpart for {name} {array.shape}")
+        out["/".join(mods + [leaf])] = array
+    return out
+
+
+def train_state_from_params(init_state, params: dict):
+    """A train state of ``train.steps.build_steps`` whose network holds the
+    flax hourglass ``params`` (nested numpy dicts): ``init_state`` builds the
+    state, the weights are then copied in place."""
+    state = init_state(torch.Generator().manual_seed(0))
+    _load_exact(state.network, hourglass_state_dict(params))
+    return state
+
+
+def load_pose_vae(module: nn.Module, arrays: dict[str, np.ndarray]) -> nn.Module:
+    """``pose_vae.npz`` arrays -> ``models.pose_vae.PoseVae``."""
+    state = {}
+    for key, array in arrays.items():
+        layer, leaf = key.rsplit("/", 1)
+        if layer not in VAE_LAYERS:
+            raise ValueError(f"unknown pose VAE array {key}")
+        state[f"{VAE_LAYERS[layer]}.{leaf}"] = torch.from_numpy(np.ascontiguousarray(array))
+    _load_exact(module, state)
     return module
 
 

@@ -1,9 +1,13 @@
-"""Depth-map sensor noise.
+"""Depth-map sensor noise and the train-time resize-crop augmentation.
 
-Counterpart of ``depth_pixel_noise`` in ``spherehand_tpu/data/noise.py``
-(reference network/util_modules.py:60-84). Following the port's RNG rule,
-:func:`draw_pixel_noise` makes the three standard-normal draws from a
-``torch.Generator`` and :func:`apply_pixel_noise` is the deterministic core.
+Counterpart of ``depth_pixel_noise``, ``resize_crop`` and
+``sample_resize_scales`` in ``spherehand_tpu/data/noise.py`` (reference
+network/util_modules.py:60-84,383-424, create_network_and_criterion.py:42-48).
+Following the port's RNG rule, each stochastic function is a draw step from
+a ``torch.Generator`` (:func:`draw_pixel_noise`,
+:func:`draw_resize_scales`) and a deterministic core that takes the draws
+(:func:`apply_pixel_noise`, :func:`resize_scales`). ``depth_resample`` is
+off by default and not ported yet.
 """
 from __future__ import annotations
 
@@ -60,3 +64,66 @@ def depth_pixel_noise(generator: torch.Generator, dms: torch.Tensor) -> torch.Te
     """Draw step + core."""
     draws = draw_pixel_noise(generator, dms.shape)
     return apply_pixel_noise(dms, PixelNoiseDraws(*(d.to(dms.device) for d in draws)))
+
+
+class ResizeDraws(NamedTuple):
+    """Uniform [0, 1) draws of the resize-crop scales: one coin for the
+    batch, and a base and two per-axis jitters for each of the n rows."""
+
+    coin: torch.Tensor  # ()
+    base: torch.Tensor  # (n,)
+    u: torch.Tensor     # (n,)
+    v: torch.Tensor     # (n,)
+
+
+def draw_resize_scales(generator: torch.Generator, n: int) -> ResizeDraws:
+    dev = generator.device
+    coin = torch.rand((), generator=generator, device=dev)
+    return ResizeDraws(coin, *(torch.rand((n,), generator=generator, device=dev)
+                               for _ in range(3)))
+
+
+def resize_scales(draws: ResizeDraws) -> tuple[torch.Tensor, torch.Tensor]:
+    """(u_scales, v_scales), each (n,): identity with p = 0.5 (one coin for
+    the whole batch), else a shared base in [0.75, 0.95) plus +-0.05 jitter
+    per axis."""
+    base = draws.base * 0.2 + 0.75
+    u = base + draws.u * 0.1 - 0.05
+    v = base + draws.v * 0.1 - 0.05
+    identity = draws.coin < 0.5
+    ones = torch.ones_like(u)
+    return torch.where(identity, ones, u), torch.where(identity, ones, v)
+
+
+def sample_resize_scales(generator: torch.Generator, n: int):
+    """Draw step + core."""
+    return resize_scales(draw_resize_scales(generator, n))
+
+
+def _axis_index(scales: torch.Tensor, size: int):
+    """Nearest-neighbour source index and paste mask along one axis."""
+    new_size = torch.floor(size * scales + 0.5).to(torch.int64)  # (B,)
+    used = torch.floor(size * scales).to(torch.int64)  # int(width * scale)
+    start = (size - new_size) // 2
+    rel = torch.arange(size, device=scales.device)[None, :] - start[:, None]
+    inside = (rel >= 0) & (rel < used[:, None])
+    # torch nearest-neighbour: src = floor(dst * in_size / out_size)
+    src = (rel * size) // torch.clamp(new_size[:, None], min=1)
+    return torch.clamp(src, 0, size - 1), inside
+
+
+def resize_crop(dms: torch.Tensor, u_scales: torch.Tensor, v_scales: torch.Tensor) -> torch.Tensor:
+    """Anisotropic shrink + centred paste on background 1.0, per sample.
+
+    dms (B, H, W), scales (B,) in (0, 1]: nearest-neighbour resize to
+    (round(H v), round(W u)), pasted centred (the torch ResizeCropImage
+    shrink path, util_modules.py:396-423). A scale of exactly 1 on both axes
+    is the identity. The index map is separable, so it is one gather."""
+    batch, height, width = dms.shape
+    src_u, in_u = _axis_index(u_scales, width)
+    src_v, in_v = _axis_index(v_scales, height)
+    rows = torch.arange(batch, device=dms.device)[:, None, None]
+    gathered = dms[rows, src_v[:, :, None], src_u[:, None, :]]
+    inside = in_v[:, :, None] & in_u[:, None, :]
+    identity = ((u_scales >= 1.0) & (v_scales >= 1.0))[:, None, None]
+    return torch.where(identity, dms, torch.where(inside, gathered, torch.ones_like(dms)))

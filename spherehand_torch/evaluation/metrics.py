@@ -1,8 +1,7 @@
 """Joint-error metrics over the synthetic <-> NYU keypoint correspondence.
 
 Counterpart of ``spherehand_tpu/evaluation/metrics.py`` (reference
-network/utils_metric.py:7-17 and dataset/evaluation.py:59-79). The padded-row
-weights of the data-parallel path arrive with that path.
+network/utils_metric.py:7-17 and dataset/evaluation.py:59-79).
 """
 from __future__ import annotations
 
@@ -10,6 +9,7 @@ import numpy as np
 import torch
 
 from spherehand_torch import constants as C
+from spherehand_torch.ops.reduce import bmean
 
 
 def average_joint_error(
@@ -17,11 +17,13 @@ def average_joint_error(
     est_joints: torch.Tensor,
     synt_points: tuple = C.SYNT_KEY_POINTS,
     real_points: tuple = C.REAL_KEY_POINTS,
+    weights: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Mean L2 error (mm): gt (..., 36, 3) NYU joints vs est (..., 41, 3)."""
+    """Mean L2 error (mm): gt (..., 36, 3) NYU joints vs est (..., 41, 3);
+    ``weights`` (batch,) zeroes padded rows."""
     gt = gt_joints[..., list(real_points), :]
     est = est_joints[..., list(synt_points), :]
-    return torch.linalg.norm(gt - est, dim=-1).mean()
+    return bmean(torch.linalg.norm(gt - est, dim=-1), weights)
 
 
 def per_joint_error(

@@ -1,0 +1,89 @@
+"""Multi-view self-supervision: the mutual-projection and consistency losses.
+
+Counterpart of ``spherehand_tpu/losses/multiview.py`` (reference
+mesh/multiview_utility.py:9-167). Camera-pose quirk kept: translations are
+read from column [:3, 3], which the NYU generator leaves ~0 (it writes its
+translations into row [3, :3]), so cross-view transforms are effectively
+rotation-only.
+
+``mutual_projection_loss`` is the fused form of the JAX package
+(multiview.py:111-138) on every device: one call of
+:func:`spherehand_torch.render.sphere_cuda.sphere_min_depth_and_d2m` gives
+both fields of the projected sphere set against the observed maps, and its
+backward the summed centre gradient. On the CPU that op runs its plain
+versions, on CUDA its kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from spherehand_torch.ops.reduce import bmean, bmean_keep
+from spherehand_torch.render.sphere_cuda import sphere_min_depth_and_d2m
+
+
+def mutual_transforms(poses: torch.Tensor, inv_poses: torch.Tensor) -> torch.Tensor:
+    """All-pairs view transforms: out[b, i, j] = inv_poses[b, j] @ poses[b, i].
+    poses (B, V, 4, 4) -> (B, V, V, 4, 4)."""
+    return torch.einsum("bjmn,binl->bijml", inv_poses, poses)
+
+
+def apply_rigid(mats: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """(..., 4, 4) rigid transforms applied to (..., N, 3) points: rotation
+    [:3, :3], translation from column [:3, 3]."""
+    rotated = torch.einsum("...mn,...jn->...jm", mats[..., :3, :3], points)
+    return rotated + mats[..., None, :3, 3]
+
+
+def mutual_projection_loss(
+    poses: torch.Tensor,
+    inv_poses: torch.Tensor,
+    joints: torch.Tensor,
+    real_dms: torch.Tensor,
+    radii: torch.Tensor,
+    is_mv: bool | torch.Tensor = True,
+    weights: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Model <-> data alignment across views (multiview_utility.py:90-130).
+
+    joints (B, V, J, 3) mm per view; real_dms (B, V, S, S) observed depth in
+    mm (background 100). The mv branch covers all V x V pairs (x9), the sv
+    branch the own-view diagonal (x3); each is m2d + 500 d2m. Both are
+    computed and ``is_mv`` selects. Returns (loss, projected depth maps
+    (B, V, V, S, S)).
+    """
+    size = real_dms.shape[-1]
+    num_views = real_dms.shape[1]
+    diag = torch.arange(num_views, device=real_dms.device)
+    mats = mutual_transforms(poses, inv_poses).detach()
+    projected = apply_rigid(mats, joints[:, :, None])  # (B, V, V, J, 3)
+    b, vi, vj, num_j, _ = projected.shape
+    depth, dist = sphere_min_depth_and_d2m(
+        projected.reshape(b * vi * vj, num_j, 3),
+        real_dms.reshape(b * num_views, size, size),
+        radii, size, views=num_views,
+    )
+    projected_dms = depth.reshape(b, vi, vj, size, size)
+    dist_field = torch.clamp(dist.reshape(b, vi, vj, size, size), 0.0, 50.0)
+    d2m_mv = bmean(dist_field, weights) * 9.0
+    # the diagonal [b, v, v] of the same field is the own-view d2m term
+    d2m_sv = bmean_keep(dist_field[:, diag, diag], weights, (2, 3)).sum() * 3.0
+
+    m2d_mv = bmean((projected_dms - real_dms[:, None]) ** 2, weights) * 9.0
+    proj_diag = projected_dms[:, diag, diag]  # (B, V, S, S)
+    m2d_sv = bmean_keep((proj_diag - real_dms) ** 2, weights, (2, 3)).sum() * 3.0
+
+    loss_mv = m2d_mv + 500.0 * d2m_mv
+    loss_sv = m2d_sv + 500.0 * d2m_sv
+    loss = torch.where(torch.as_tensor(is_mv, device=loss_mv.device), loss_mv, loss_sv)
+    return loss, projected_dms
+
+
+def multiview_consistency_loss(
+    poses: torch.Tensor, joints: torch.Tensor, weights: torch.Tensor | None = None
+) -> torch.Tensor:
+    """MSE of the per-view canonical joints (B, V, J, 3) against their
+    per-coordinate median over views (the lower middle value for even V)."""
+    canonical = apply_rigid(poses, joints)
+    num_views = canonical.shape[1]
+    med = torch.sort(canonical, dim=1).values[:, (num_views - 1) // 2]
+    return bmean((med[:, None] - canonical) ** 2, weights)

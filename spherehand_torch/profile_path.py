@@ -5,17 +5,26 @@ one profiler window, after warm-up, and ``CALLS`` times more unprofiled for
 its host time. For each piece it prints one JSON line, per call:
 
 - ``host_ms``: wall clock, unprofiled, the device synchronised at both ends;
-- ``device_ms``: the union of the device activity intervals (kernels, copies,
-  memsets) the profiler recorded;
+- ``launches``: device activities issued (kernel launches, copies, memsets),
+  counted from the host-side runtime calls that issue them;
+- ``recorded``: the share of those activities the tracer recorded. It
+  loses a few now and then (up to one in ten in a window of ten
+  single-kernel calls);
+- ``device_ms``: the union of the recorded device activity intervals,
+  divided by ``recorded`` so that a lost activity counts as the recorded
+  mean (for a piece of one kernel: the mean time of its recorded launches);
 - ``idle_share``: ``1 - device_ms / host_ms``, the share of the call in which
   the card has nothing to run;
-- ``launches``: device activities;
-- ``top``: the device ops with the most time, as [name, ms, count].
+- ``top``: the recorded device ops with the most time, as [name, ms, count].
 
 Pieces, at B = 128 (the main path's batch) and 1024: the geometry front end
 (``project_faces_planes``), each pre-pass, each kernel, ``render_depth_64``
 fast and exact, ``synthesize`` (fast, with noise) and
-``PoseEstimator.predict`` with the shipped weights.
+``PoseEstimator.predict`` with the shipped weights. Then, at ``EngineConfig``
+defaults (48 synthetic + 25 x 3 real, from the shipped weights): each fused
+sphere kernel alone at the combined step's N = 225 images, and the train
+steps ``synt_step`` and ``combined_step``, each with its draws, and
+``eval_step``.
 
 Usage: python -m spherehand_torch.profile_path
 
@@ -37,6 +46,8 @@ CALLS = 10
 SEED = 0
 BATCHES = (128, 1024)
 TOP = 6
+# Prefixes of the runtime calls that each put one activity on the device.
+DEVICE_WORK_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cuMemcpy", "cudaMemset", "cuMemset")
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PARAMS = os.path.join(_ROOT, "assets", "pretrained", "synthetic_params.npz")
 
@@ -57,7 +68,17 @@ def union_us(intervals) -> float:
 
 
 def device_events(prof):
-    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    """Device activities, without the user annotations (such as
+    ``Optimizer.step#Adam.step``) the profiler mirrors onto the device
+    timeline: they span other activities and the gaps between them."""
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def issued_activities(prof) -> int:
+    """Host-side runtime calls that each put one activity on the device."""
+    return sum(1 for e in prof.events() if e.device_type != torch.autograd.DeviceType.CUDA
+               and e.name.startswith(DEVICE_WORK_CALLS))
 
 
 def host_ms(fn, calls: int) -> float:
@@ -67,6 +88,13 @@ def host_ms(fn, calls: int) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / calls
+
+
+def recorded_share(recorded: int, issued: int) -> float:
+    """Share of the issued device activities that were recorded, at most 1
+    (activities issued by calls outside ``DEVICE_WORK_CALLS`` count as
+    recorded)."""
+    return min(1.0, recorded / issued) if issued else 1.0
 
 
 def profile_piece(fn, calls: int = CALLS) -> dict:
@@ -82,7 +110,9 @@ def profile_piece(fn, calls: int = CALLS) -> dict:
     events = device_events(prof)
     if not events:
         raise SystemExit("profile_path: the profiler recorded no device activity")
-    busy = union_us((e.time_range.start, e.time_range.end) for e in events) / 1e3 / calls
+    issued = max(issued_activities(prof), len(events))
+    recorded = recorded_share(len(events), issued)
+    busy = union_us((e.time_range.start, e.time_range.end) for e in events) / 1e3 / calls / recorded
     per_name: dict = defaultdict(lambda: [0.0, 0])
     for e in events:
         per_name[e.name][0] += e.time_range.elapsed_us() / 1e3 / calls
@@ -93,7 +123,8 @@ def profile_piece(fn, calls: int = CALLS) -> dict:
         "host_ms": wall,
         "device_ms": busy,
         "idle_share": 1.0 - busy / wall,
-        "launches": len(events) / calls,
+        "launches": issued / calls,
+        "recorded": recorded,
         "top": [[name[:80], ms, n / calls] for name, (ms, n) in top],
     }
 
@@ -103,14 +134,9 @@ def main() -> int:
         print("profile_path: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
 
-    from spherehand_torch.data.sampler import sample_poses
-    from spherehand_torch.data.synthesizer import draw_synthesis, synthesize
     from spherehand_torch.hand.assets import load_hand_model
-    from spherehand_torch.hand.kinematics import forward_kinematics
-    from spherehand_torch.hand.skinning import apply_scale, project_faces_planes
     from spherehand_torch.infer import PoseEstimator, load_params_npz
-    from spherehand_torch.render import raster_cuda
-    from spherehand_torch.render.raster import bilinear_sample_positions, render_depth_64
+    from spherehand_torch.render.raster import bilinear_sample_positions
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -123,6 +149,21 @@ def main() -> int:
     samples = torch.as_tensor(bilinear_sample_positions(64, 10), device=dev)
     estimator = PoseEstimator(load_params_npz(PARAMS), num_stacks=1, denoise=True,
                               precision="highest", device=dev)
+    _profile_render_and_serve(model, samples, estimator)
+    _profile_train_steps(model)
+    print(smi)
+    return 0
+
+
+def _profile_render_and_serve(model, samples, estimator) -> None:
+    from spherehand_torch.data.sampler import sample_poses
+    from spherehand_torch.data.synthesizer import draw_synthesis, synthesize
+    from spherehand_torch.hand.kinematics import forward_kinematics
+    from spherehand_torch.hand.skinning import apply_scale, project_faces_planes
+    from spherehand_torch.render import raster_cuda
+    from spherehand_torch.render.raster import render_depth_64
+
+    dev = samples.device
     for batch in BATCHES:
         gen = torch.Generator(device=dev).manual_seed(SEED + batch)
         poses = sample_poses(gen, batch)
@@ -149,8 +190,48 @@ def main() -> int:
         for name, fn in pieces.items():
             row = {"piece": name, "batch": batch, **profile_piece(fn)}
             print(json.dumps(row), flush=True)
-    print(smi)
-    return 0
+
+
+def _profile_train_steps(model) -> None:
+    from spherehand_torch.convert import train_state_from_params
+    from spherehand_torch.data.pseudo_real import render_multiview_batch
+    from spherehand_torch.infer import load_params_npz
+    from spherehand_torch.losses.multiview import apply_rigid, mutual_transforms
+    from spherehand_torch.render import sphere_cuda
+    from spherehand_torch.train.config import EngineConfig
+    from spherehand_torch.train.steps import NUM_VIEWS, RealBatch, build_steps
+
+    cfg = EngineConfig()
+    fns = build_steps(cfg, hand=model)
+    state = train_state_from_params(fns.init_state, load_params_npz(PARAMS))
+    gen = torch.Generator(device=model.kp_radius.device).manual_seed(SEED)
+    real = render_multiview_batch(model, gen, cfg.real_batch)
+    batch = RealBatch(*real[:4])
+    # the sphere kernels alone at the combined step's shapes (N = 25 x 3 x 3)
+    centers = apply_rigid(mutual_transforms(real.poses, real.inv_poses), real.keypoints[:, :, None])
+    sph = (centers.reshape(-1, model.kp_radius.shape[0], 3).contiguous(),
+           real.dms.reshape(-1, *real.dms.shape[2:]).contiguous(), model.kp_radius,
+           real.dms.shape[-1], NUM_VIEWS)
+    planes = sphere_cuda.launch_fused(*sph, residuals=True)
+    grads = (torch.ones_like(planes[0]), torch.ones_like(planes[1]))
+    pieces = {
+        "sphere_fused_fwd": lambda: sphere_cuda.launch_fused(*sph, residuals=True),
+        "sphere_fused_primal": lambda: sphere_cuda.launch_fused(*sph, residuals=False),
+        "sphere_fused_bwd": lambda: sphere_cuda.launch_fused_bwd(
+            sph[0], sph[1], NUM_VIEWS, *grads, *planes[2:]),
+    }
+    for name, fn in pieces.items():
+        row = {"piece": name, "batch": f"N={sph[0].shape[0]}", **profile_piece(fn)}
+        print(json.dumps(row), flush=True)
+    pieces = {
+        "synt_step": lambda: fns.synt_step(state, cfg.lr, fns.draw(gen, real=False)),
+        "combined_step": lambda: fns.combined_step(state, cfg.lr, fns.draw(gen), batch, True),
+        "eval_step": lambda: fns.eval_step(state, fns.draw(gen, synt=False), batch),
+    }
+    for name, fn in pieces.items():
+        row = {"piece": name, "batch": f"{cfg.synt_batch}+{cfg.real_batch}x{NUM_VIEWS}",
+               **profile_piece(fn)}
+        print(json.dumps(row), flush=True)
 
 
 if __name__ == "__main__":

@@ -64,3 +64,31 @@ def adversarial_cases() -> list[tuple[str, np.ndarray, int]]:
     z = rng.uniform(20, 90, (200, 3, 1)).astype(np.float32)
     cases.append(("random_fuzz", np.concatenate([verts, z], axis=-1), 128))
     return [(name, faces[None], size) for name, faces, size in cases]
+
+
+def sphere_adversarial_case(views: int = 3, batch: int = 2, num_j: int = 41, size: int = 64,
+                            seed: int = 5):
+    """Hostile inputs for the fused sphere kernels, as numpy float32:
+    (centers (B*V*V, J, 3) mm, target (B*V, S, S) mm, radii (J,)).
+
+    - spheres 1 and 3 duplicate spheres 0 and 2 (radius included): exact
+      ties in both fields, which the lowest-j rule gives to 0 and 2;
+    - sphere 4 is centred on a pixel centre at the observed depth there, so
+      its squared point distance is 0 and its distance weight is clipped;
+    - the targets of batch row 0 are all background (every distance 0).
+    """
+    rng = np.random.RandomState(seed)
+    n = batch * views * views
+    centers = rng.uniform(-60, 60, (n, num_j, 3)).astype(np.float32)
+    radii = rng.uniform(4, 12, (num_j,)).astype(np.float32)
+    target = np.full((batch * views, size, size), 100.0, np.float32)
+    target[views:, 12:52, 12:52] = rng.uniform(-60, 60, (target.shape[0] - views, 40, 40))
+    centers[:, 1], radii[1] = centers[:, 0], radii[0]
+    centers[:, 3], radii[3] = centers[:, 2], radii[2]
+    u, v = 30, 33
+    grid = lambda i: np.float32((np.float32(i) - np.float32(size / 2)) * np.float32(300.0)  # noqa: E731
+                                / np.float32(size))
+    for img in range(n):
+        plane = (img // (views * views)) * views + img % views
+        centers[img, 4] = (grid(u), grid(v), target[plane, v, u])
+    return centers, target, radii

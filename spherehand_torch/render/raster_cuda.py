@@ -31,18 +31,15 @@ face bins; it only matters for near-degenerate records whose sanitised
 coefficients turn a triangle into a strip.
 
 The library is built with nvcc at first use, from the checkout's sources,
-into ``spherehand_torch/build/`` (see :func:`build`).
+into ``spherehand_torch/build/`` (see :mod:`spherehand_torch.cuda_build`).
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 
 import torch
 
+from spherehand_torch import cuda_build
 from spherehand_torch.render.raster import (
     BACKGROUND_INIT,
     barycentric_rows,
@@ -58,17 +55,6 @@ FREC_EXACT = 24  # fields per exact-mode face record (last one is padding)
 BOX_MARGIN = 1.0  # px added around a face's box for the fast-mode coverage
 
 LAUNCHES = {"raster_fast_pooled": 0, "raster_exact": 0}
-
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "raster.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "build")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    # No FMA contraction: span bounds (ceil/trunc) and depth bits must round
-    # like the plain PyTorch version, one operation at a time.
-    "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 
 _lib = None
 
@@ -255,38 +241,10 @@ def raster_fast_pooled_plain(
 # ------------------------------------------------------------------- build
 
 
-def _nvcc() -> str:
-    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"), "/usr/local/cuda"):
-        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
-            return os.path.join(home, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the CUDA rasterizers need the CUDA toolkit")
-    return found
-
-
 def build() -> tuple[str, str]:
-    """Compile ``csrc/raster.cu`` into a shared library under ``build/``.
-
-    The file name carries a hash of the source and flags, so an unchanged
-    source is built once per checkout. Returns (library path, compiler log:
-    ptxas registers, shared memory and spills per kernel)."""
-    with open(SOURCE, "rb") as fh:
-        src = fh.read()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    path = os.path.join(BUILD_DIR, f"libshx_raster_{digest}.so")
-    if os.path.exists(path):
-        return path, ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-        capture_output=True, text=True, check=False,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, path)
-    return path, proc.stderr
+    """Compile ``csrc/raster.cu`` under ``build/`` (``cuda_build.build``).
+    Returns (library path, compiler log)."""
+    return cuda_build.build("raster")
 
 
 def _library():

@@ -1,0 +1,284 @@
+"""Train and eval steps: synthetic, combined self-supervised, real-only, eval.
+
+Counterpart of ``spherehand_tpu/train/steps.py:build_steps`` (reference
+network/engine.py:150-436). A step renders its synthetic batch on the
+device (sampler -> FK -> raster -> noise -> GT heatmaps), runs the hourglass
+on the synthetic batch and the flattened real multi-view batch together,
+assembles the multi-task loss (the mutual-projection term through the fused
+sphere op and its CUDA kernels), backpropagates and takes one Adam step.
+
+- Optimizer: ``torch.optim.Adam(weight_decay=)``, which adds the L2 term to
+  the gradient before the moments, as ``optax.add_decayed_weights`` ahead of
+  ``scale_by_adam`` (steps.py:75-79); eps 1e-8 as optax. The learning rate
+  is set on every call, so a caller drives the StepLR schedule
+  (``EngineConfig.lr_at_epoch``).
+- Init: conv kernels variance-scaling(1/3, fan_in, uniform), biases zero,
+  GroupNorm 1 / 0, as the JAX network (models/hourglass.py:28-34).
+- Draws: every stochastic input comes from :func:`StepFns.draw` with a
+  ``torch.Generator`` (poses, synthesis draws with the pixel noise, resize
+  scales, VAE noise); the step functions are deterministic in them.
+  ``combined_grads`` also takes a ready synthetic batch (``synt=``).
+- State: the network and optimizer update in place (PyTorch's way; the JAX
+  step returns new buffers); each step returns the state it was given.
+- Precision: the train steps run at PyTorch's float32 defaults (cuDNN
+  convolutions may use TF32 on the GPU); the eval step honours
+  ``cfg.eval_precision`` through ``infer.float32_precision``.
+
+``combined_term_diag``, bf16 and padded (data-parallel) synthetic batches
+are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, NamedTuple
+
+import torch
+from torch import nn
+
+from spherehand_torch.constants import Constants
+from spherehand_torch.data.noise import ResizeDraws, draw_resize_scales, resize_scales
+from spherehand_torch.data.sampler import sample_poses
+from spherehand_torch.data.synthesizer import (
+    SynthesisDraws,
+    SyntheticBatch,
+    draw_synthesis,
+    synthesize_from_draws,
+)
+from spherehand_torch.device import resolve_device
+from spherehand_torch.evaluation.metrics import average_joint_error
+from spherehand_torch.hand.assets import HandModel, load_hand_model
+from spherehand_torch.infer import float32_precision
+from spherehand_torch.losses.multitask import combine_loss, multitask_loss
+from spherehand_torch.models.estimator import forward, make_network
+from spherehand_torch.models.pose_denoiser import load_pose_denoiser
+from spherehand_torch.models.pose_vae import draw_vae_noise, load_pose_vae_model
+from spherehand_torch.train.config import EngineConfig
+
+_C = Constants()
+NUM_VIEWS = 3  # views per real sample (the NYU rig; steps.py:134 of the JAX package)
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    network: nn.Module
+    optimizer: torch.optim.Optimizer
+    # Carried state of the temporal-smoothness loss (util_modules.py:360-381).
+    prev_skel: torch.Tensor  # (V, 41, 3)
+    has_prev: torch.Tensor   # bool scalar
+
+
+class RealBatch(NamedTuple):
+    """One multi-view batch (depth in mm, as a loader gives it). ``weights``
+    (B,) marks padded rows with 0; None = all rows real."""
+
+    dms: torch.Tensor        # (B, V, 64, 64) mm, background 100
+    gt_joints: torch.Tensor  # (B, V, 36, 3)
+    poses: torch.Tensor      # (B, V, 4, 4)
+    inv_poses: torch.Tensor  # (B, V, 4, 4)
+    weights: torch.Tensor | None = None
+
+
+class StepDraws(NamedTuple):
+    """The random inputs of one step (None where the step has no such part)."""
+
+    poses: torch.Tensor | None             # (Bs, 26) sampler poses
+    synthesis: SynthesisDraws | None       # scale, focal jitter, pixel noise
+    resize: ResizeDraws | None             # resize-crop draws, (Br*V,)
+    vae_noise: tuple | None                # per stack, (Br*V, 32)
+
+    def to(self, device) -> "StepDraws":
+        """The same draws on ``device``."""
+
+        def move(x):
+            if x is None or isinstance(x, torch.Tensor):
+                return None if x is None else x.to(device)
+            items = [move(v) for v in x]
+            return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+
+        return move(self)
+
+
+class StepFns(NamedTuple):
+    init_state: Any      # (generator) -> TrainState
+    draw: Any            # (generator, synt=True, real=True) -> StepDraws
+    synt_step: Any       # (state, lr, draws) -> (state, metrics)
+    combined_step: Any   # (state, lr, draws, batch, is_mv) -> (state, metrics, vis)
+    combined_grads: Any  # (state, draws, batch, is_mv, real_aug=True, synt=None)
+    #                      -> (loss, terms, {parameter name: gradient})
+    real_step: Any       # (state, lr, draws, batch) -> (state, metrics, vis)
+    eval_step: Any       # (state, draws, batch) -> (metrics, denoised view-0 joints)
+
+
+@torch.no_grad()
+def init_like_jax(network: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Conv kernels U(-sqrt(1/fan_in), sqrt(1/fan_in)) (flax
+    variance_scaling(1/3, "fan_in", "uniform"), torch Conv2d's default
+    kernel distribution), conv biases 0, GroupNorm scale 1 and bias 0."""
+    for module in network.modules():
+        if isinstance(module, nn.Conv2d):
+            w = module.weight
+            limit = math.sqrt(1.0 / (w.shape[1] * w.shape[2] * w.shape[3]))
+            u = torch.rand(w.shape, generator=generator, device=generator.device)
+            w.copy_(u * (2.0 * limit) - limit)
+            module.bias.zero_()
+        elif isinstance(module, nn.GroupNorm):
+            module.weight.fill_(1.0)
+            module.bias.zero_()
+    return network
+
+
+def build_steps(cfg: EngineConfig, hand: HandModel | None = None,
+                device: torch.device | str | None = None) -> StepFns:
+    """The step functions for ``cfg`` on ``device`` (CUDA by default; the
+    hand model's device when one is given)."""
+    dev = hand.kp_radius.device if hand is not None and device is None else resolve_device(device)
+    if hand is None:
+        hand = load_hand_model(device=dev)
+    loss_cfg = cfg.loss_config
+    vae = load_pose_vae_model(device=dev) if cfg.prior else None
+    denoiser = load_pose_denoiser(device=dev)
+    radii = hand.kp_radius
+    eval_precision = "highest" if cfg.eval_precision == "highest" else None
+    num_real_rows = cfg.real_batch * NUM_VIEWS
+
+    def init_state(generator: torch.Generator) -> TrainState:
+        network = init_like_jax(make_network(cfg.num_stacks), generator).to(dev)
+        optimizer = torch.optim.Adam(network.parameters(), lr=cfg.lr,
+                                     weight_decay=cfg.weight_decay)
+        return TrainState(
+            step=0, network=network, optimizer=optimizer,
+            prev_skel=torch.zeros((NUM_VIEWS, _C.num_joints, 3), device=dev),
+            has_prev=torch.zeros((), dtype=torch.bool, device=dev),
+        )
+
+    def draw(generator: torch.Generator, synt: bool = True, real: bool = True) -> StepDraws:
+        poses = sample_poses(generator, cfg.synt_batch) if synt else None
+        synthesis = draw_synthesis(generator, cfg.synt_batch) if synt else None
+        resize = draw_resize_scales(generator, num_real_rows) if real else None
+        noise = (tuple(draw_vae_noise(generator, num_real_rows) for _ in range(cfg.num_stacks))
+                 if real and cfg.prior else None)
+        return StepDraws(poses, synthesis, resize, noise)
+
+    def _synt(draws: StepDraws, synt: SyntheticBatch | None) -> SyntheticBatch:
+        if synt is not None:
+            return synt
+        return synthesize_from_draws(hand, draws.poses, draws.synthesis, add_noise=True)
+
+    def _real_target(batch: RealBatch) -> dict:
+        return {"real_dms": batch.dms, "camera_poses": batch.poses,
+                "inv_camera_poses": batch.inv_poses}
+
+    def _loss(state, synt, batch, scales, draws, is_mv):
+        scaled_real = None if batch is None else batch.dms * _C.depth_scale
+        out = forward(state.network, synt_dms=None if synt is None else synt.dms,
+                      real_dms=scaled_real, scales=scales)
+        terms, _, new_prev = multitask_loss(
+            loss_cfg, out, radii, vae=vae, synt_target=synt,
+            real_target=None if batch is None else _real_target(batch),
+            vae_noise=draws.vae_noise, is_mv=is_mv,
+            prev_skel=state.prev_skel, has_prev=state.has_prev,
+            real_weights=None if batch is None else batch.weights,
+        )
+        return combine_loss(terms), terms, out, new_prev, scaled_real
+
+    def _backward(state, loss):
+        state.network.zero_grad(set_to_none=True)
+        loss.backward()
+
+    def _apply_updates(state, lr, new_prev=None):
+        for group in state.optimizer.param_groups:
+            group["lr"] = float(lr)
+        state.optimizer.step()
+        state.step += 1
+        if new_prev is not None and new_prev[0] is not None:
+            state.prev_skel, state.has_prev = new_prev
+        return state
+
+    def _metrics(loss, terms) -> dict:
+        return {"loss": loss.detach(), **{k: v.detach() for k, v in terms.items()}}
+
+    def synt_step(state: TrainState, lr: float, draws: StepDraws):
+        """Synthetic-only pretraining step (engine.py:265-316)."""
+        synt = _synt(draws, None)
+        loss, terms, out, _, _ = _loss(state, synt, None, None, draws, True)
+        _backward(state, loss)
+        _apply_updates(state, lr)
+        metrics = _metrics(loss, terms)
+        metrics["synt_joint_err"] = torch.linalg.norm(
+            out.synt_xyz[-1].detach() - synt.xyz, dim=-1).mean()
+        return state, metrics
+
+    def _combined(state, draws, batch, is_mv, real_aug, synt):
+        synt = _synt(draws, synt)
+        scales = resize_scales(draws.resize) if real_aug else None
+        loss, terms, out, new_prev, scaled_real = _loss(state, synt, batch, scales, draws, is_mv)
+        _backward(state, loss)
+        return loss, terms, out, new_prev, synt, scaled_real
+
+    def combined_grads(state: TrainState, draws: StepDraws, batch: RealBatch, is_mv,
+                       real_aug: bool = True, synt: SyntheticBatch | None = None):
+        """(loss, terms, gradients by parameter name) of the combined
+        objective, no optimizer update. ``real_aug=False`` bypasses the
+        resize-crop augmentation."""
+        loss, terms, *_ = _combined(state, draws, batch, is_mv, real_aug, synt)
+        grads = {name: p.grad for name, p in state.network.named_parameters()}
+        return loss.detach(), {k: v.detach() for k, v in terms.items()}, grads
+
+    def combined_step(state: TrainState, lr: float, draws: StepDraws, batch: RealBatch, is_mv):
+        """Mixed synthetic + real self-supervised step (engine.py:318-436)."""
+        loss, terms, out, new_prev, synt, scaled_real = _combined(
+            state, draws, batch, is_mv, True, None)
+        _apply_updates(state, lr, new_prev)
+        metrics = _metrics(loss, terms)
+        metrics["avg_joint_error"] = average_joint_error(
+            batch.gt_joints, out.real_xyz[-1].detach(), weights=batch.weights)
+        vis = {
+            "real_dms": scaled_real,
+            "real_uv_hms": out.real_uv_hms[-1].detach(),
+            "real_xyz": out.real_xyz[-1].detach(),
+            "synt_dms": synt.dms,
+            "synt_uv_hms": out.synt_uv_hms[-1].detach(),
+            "synt_xyz": out.synt_xyz[-1].detach(),
+            "synt_gt_uv_hms": synt.uv_hms,
+            "synt_gt_xyz": synt.xyz,
+        }
+        return state, metrics, vis
+
+    def real_step(state: TrainState, lr: float, draws: StepDraws, batch: RealBatch):
+        """Real-data-only self-supervised step (engine.py:150-263, Train mode)."""
+        scales = resize_scales(draws.resize)
+        loss, terms, out, new_prev, scaled_real = _loss(state, None, batch, scales, draws, True)
+        _backward(state, loss)
+        _apply_updates(state, lr, new_prev)
+        metrics = _metrics(loss, terms)
+        metrics["avg_joint_error"] = average_joint_error(
+            batch.gt_joints, out.real_xyz[-1].detach(), weights=batch.weights)
+        vis = {"real_dms": scaled_real, "real_uv_hms": out.real_uv_hms[-1].detach(),
+               "real_xyz": out.real_xyz[-1].detach()}
+        return state, metrics, vis
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, draws: StepDraws, batch: RealBatch):
+        """Losses for logging plus the headline metric: view 0, last stack,
+        palm joints denoised (engine.py:203-207)."""
+        with float32_precision(eval_precision):
+            scaled_real = batch.dms * _C.depth_scale
+            out = forward(state.network, real_dms=scaled_real)
+            terms, _, _ = multitask_loss(
+                loss_cfg, out, radii, vae=vae, real_target=_real_target(batch),
+                vae_noise=draws.vae_noise, is_mv=True, prev_skel=state.prev_skel,
+                has_prev=state.has_prev, real_weights=batch.weights,
+            )
+            est = out.real_xyz[-1][:, 0]  # (B, 41, 3), view 0
+            denoised = denoiser(est)
+        metrics = dict(terms)
+        metrics["avg_joint_error"] = average_joint_error(
+            batch.gt_joints[:, 0], denoised, weights=batch.weights)
+        metrics["avg_joint_error_raw"] = average_joint_error(
+            batch.gt_joints[:, 0], est, weights=batch.weights)
+        return metrics, denoised
+
+    return StepFns(init_state, draw, synt_step, combined_step, combined_grads, real_step,
+                   eval_step)

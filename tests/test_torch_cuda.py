@@ -91,3 +91,77 @@ def test_render_counts_launches(hand_planes):
     assert np.isfinite(stats["pooled_median"])
     tr = forward_kinematics(model, poses)
     assert render_depth_64(model, tr).shape == (4, 64, 64)
+
+
+# ------------------------------------------------------------ sphere kernels
+
+
+def _sphere_inputs(case: str, device):
+    from spherehand_torch.render.adversarial import sphere_adversarial_case
+
+    if case == "adversarial":
+        arrays = sphere_adversarial_case()
+        views = 3
+    else:  # the loss-stack scale of tools/tpu_sphere_parity.py: N = 225, J = 41
+        rng = np.random.RandomState(77)
+        views = 3
+        centers = rng.uniform(-80, 80, (225, 41, 3)).astype(np.float32)
+        radii = rng.uniform(4, 12, (41,)).astype(np.float32)
+        target = np.full((75, 64, 64), 100.0, np.float32)
+        target[:, 16:48, 16:48] = rng.uniform(-60, 60, (75, 32, 32))
+        arrays = (centers, target, radii)
+    return (*(torch.as_tensor(a, device=device) for a in arrays), views)
+
+
+@pytest.mark.parametrize("case", ["random_225", "adversarial"])
+def test_sphere_kernels_match_plain(cuda, case):
+    from spherehand_torch.render import sphere_cuda
+
+    sphere_cuda.build()
+    centers, target, radii, views = _sphere_inputs(case, cuda)
+    stats = contracts.sphere_kernel_stats(centers, target, radii, 64, views,
+                                          torch.Generator(device=cuda).manual_seed(0))
+    if case == "adversarial":
+        assert contracts.sphere_tie_violations(stats) == 0
+    stats.pop("kernel")
+    assert contracts.sphere_ok(stats), stats
+
+
+def test_sphere_op_counts_launches(cuda):
+    from spherehand_torch.render import sphere_cuda
+
+    centers, target, radii, views = _sphere_inputs("random_225", cuda)
+    sphere_cuda.reset_launch_counts()
+    leaf = centers.clone().requires_grad_(True)
+    depth, dist = sphere_cuda.sphere_min_depth_and_d2m(leaf, target, radii, 64, views)
+    (depth.sum() + dist.sum()).backward()
+    with torch.no_grad():
+        sphere_cuda.sphere_min_depth_and_d2m(centers, target, radii, 64, views)
+    assert sphere_cuda.LAUNCHES == {
+        "sphere_fused_primal": 1, "sphere_fused_fwd": 1, "sphere_fused_bwd": 1}
+    assert leaf.grad.shape == centers.shape and torch.isfinite(leaf.grad).all()
+
+
+def test_train_steps_on_card(cuda):
+    """A small synthetic, combined and eval step on the card: finite
+    metrics, and every kernel of the path launched."""
+    from spherehand_torch.data.pseudo_real import render_multiview_batch
+    from spherehand_torch.render import sphere_cuda
+    from spherehand_torch.train.config import EngineConfig
+    from spherehand_torch.train.steps import RealBatch, build_steps
+
+    model = load_hand_model(device=cuda)
+    fns = build_steps(EngineConfig(synt_batch=4, real_batch=2), hand=model)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    state = fns.init_state(gen)
+    raster_cuda.reset_launch_counts()
+    sphere_cuda.reset_launch_counts()
+    batch = RealBatch(*render_multiview_batch(model, gen, 2)[:4])
+    state, synt_metrics = fns.synt_step(state, 1e-3, fns.draw(gen, real=False))
+    state, comb_metrics, _ = fns.combined_step(state, 1e-3, fns.draw(gen), batch, True)
+    eval_metrics, denoised = fns.eval_step(state, fns.draw(gen, synt=False), batch)
+    for metrics in (synt_metrics, comb_metrics, eval_metrics):
+        assert all(bool(torch.isfinite(v)) for v in metrics.values()), metrics
+    assert denoised.shape == (2, 41, 3)
+    assert all(n >= 1 for n in raster_cuda.LAUNCHES.values()), raster_cuda.LAUNCHES
+    assert all(n >= 1 for n in sphere_cuda.LAUNCHES.values()), sphere_cuda.LAUNCHES

@@ -7,7 +7,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "spherehand_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "spherehand_tpu", "tools"}
 
 
 def _port_sources():
@@ -47,11 +47,14 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
     from spherehand_torch.hand.assets import load_hand_model
     from spherehand_torch.infer import PoseEstimator, load_params_npz
     from spherehand_torch.models.pose_denoiser import load_pose_denoiser
+    from spherehand_torch.models.pose_vae import load_pose_vae_model
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         load_hand_model()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         load_pose_denoiser()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_pose_vae_model()
     params = load_params_npz(os.path.join(ROOT, "assets", "pretrained", "synthetic_params.npz"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PoseEstimator(params)
