@@ -32,8 +32,31 @@ Phases, each fatal on failure:
      tests/goldens/grad_parity_ab.npz (8 synthetic + 4 x 3 real, real batch
      read from that file) with the same draws and TF32 off: loss terms
      within 1e-3 relative, per-tensor gradient norms within 5 %;
-  9. CUDA-event medians: each sphere kernel and plain version at N = 225,
-     synt_step and combined_step (draws included) and eval_step.
+  9. CUDA-event medians: each fused sphere kernel and plain version at
+     N = 225, synt_step and combined_step (draws included) and eval_step;
+ 10. the op-level API of the JAX package (its unfused mutual projection and
+     the raw fast raster):
+     (a) the six one-field sphere kernels (min depth, nearest distance:
+         primal, forward, backward) against their plain versions at N = 225
+         (phase 6's hands, the distance reading the gathered targets) and on
+         the adversarial set, held as in phase 6, and their field, argmin and
+         weight planes equal to the fused kernel's bit for bit;
+     (b) the per-field path at full width: the shipped estimator (TF32 off)
+         on phase 7's 25 x 3 real batch -> joints -> the unfused
+         mutual_projection_loss (mutual_projection + data_to_model_distance)
+         under autograd, backward into the parameters, and once without
+         grad: value within 1e-6 relative and joint gradient within 2e-5 of
+         the largest entry of the fused loss (is_mv True and False), every
+         parameter gradient finite, all six one-field kernels launched;
+     (c) spherehand_torch.kernel_parity at B = 32 (raw fast IoU > 0.999 and
+         p99 < 0.5 mm against the exact rule, pooled median < 0.05 mm) and
+         stack_loss / its gradient norm within 2e-4 / 1e-3 relative of
+         tests/goldens/tpu_sphere_parity.npz (a TPU v5e's, the correctness
+         reference); raster_fast against its plain version (max |diff|
+         <= 1e-3 mm, identical coverage) at B = 128, 1024, on a non-uniform
+         grid and on the adversarial face sets, where raw fast-vs-exact
+         coverage flips stay under 1 %;
+     (d) CUDA-event medians of each new kernel and its plain version.
 
 The last three lines of standard output are the kernels JSON line, the card's
 name and power limit, and the result line. Exits non-zero without a GPU.
@@ -80,17 +103,42 @@ FAST_MAX_ERR = 1e-3
 EXACT_MAX_ERR = 1e-3
 DEVICE = "cuda"
 GRAD_PARITY = os.path.join(ROOT, "tests", "goldens", "grad_parity_ab.npz")
-# Operations per pixel-sphere update, counted from csrc/sphere.cu: depth
-# 2 sub, 2 mul, 2 sub, compare, max, sqrt, sub, select, compare = 12, plus
-# 3 selects of the argmin update; distance p.c 3 mul + 2 add, 2 p.c, sub,
-# add, max, sqrt, sub, abs, select, compare = 14, plus 4 selects. The
-# primal kernel keeps only the two minima (no argmin, sq, raw, r selects).
-SPHERE_FWD_OPS = 33
-SPHERE_PRIMAL_OPS = 28
-# Backward: per pixel 9 to form the weighted terms + 8 adds into its
-# winning spheres' sums; per (image, sphere) 10 to combine the sums.
-SPHERE_BWD_OPS_PIXEL = 17
-SPHERE_BWD_OPS_SPHERE = 10
+# Operations per pixel-sphere update, counted from csrc/sphere.cu, by field
+# mask (1 depth, 2 distance, 3 both): depth 2 sub, 2 mul, 2 sub, compare,
+# max, sqrt, sub, select, compare = 12, plus 3 selects of the argmin update
+# (1 in the primal kernel, which keeps only the minimum); distance p.c 3 mul
+# + 2 add, 2 p.c, sub, add, max, sqrt, sub, abs, select, compare = 14, plus
+# 4 selects (1 in the primal kernel). Both fields add up.
+SPHERE_FWD_OPS = {1: 15, 2: 18, 3: 33}
+SPHERE_PRIMAL_OPS = {1: 13, 2: 15, 3: 28}
+# Backward: per pixel, depth 5 to form its four weighted terms + 4 adds into
+# its winning sphere's sums, distance 4 + 4; per (image, sphere), depth 4
+# and distance 6 to combine the sums.
+SPHERE_BWD_OPS_PIXEL = {1: 9, 2: 8, 3: 17}
+SPHERE_BWD_OPS_SPHERE = {1: 4, 2: 6, 3: 10}
+# The TPU kernels each sphere kernel replaces (render/sphere_pallas.py lines).
+SPHERE_SOURCES = {3: {"primal": 227, "fwd": 253, "bwd": 308},
+                  1: {"primal": 99, "fwd": 70, "bwd": 118},
+                  2: {"primal": 179, "fwd": 143, "bwd": 200}}
+SERVING_KERNELS = ("raster_fast_pooled", "raster_exact")
+FUSED_SPHERE_KERNELS = ("sphere_fused_primal", "sphere_fused_fwd", "sphere_fused_bwd")
+PER_FIELD_KERNELS = tuple(f"{f}_{k}" for f in ("min_depth", "d2m") for k in ("primal", "fwd", "bwd"))
+# Unfused against fused mutual-projection loss on the card
+# (tests/test_sphere_pallas.py:231-235): value relative, joint gradient
+# against the largest entry.
+UNFUSED_LOSS_REL = 1e-6
+UNFUSED_GRAD_REL = 2e-5
+# kernel_parity against the TPU's recorded contract: the fast rule against
+# the exact one (raster_pallas.py:81-96) and the loss-stack fixture against
+# tests/goldens/tpu_sphere_parity.npz (tests/test_sphere_pallas.py:278-280).
+FAST_IOU_MIN = 0.999
+FAST_P99_MAX = 0.5
+FASTPOOL_MEDIAN_MAX = 0.05
+ADVERSARIAL_FLIP_MAX = 0.01
+STACK_LOSS_REL = 2e-4
+STACK_GRAD_NORM_REL = 1e-3
+SPHERE_PARITY = os.path.join(ROOT, "tests", "goldens", "tpu_sphere_parity.npz")
+PLAIN_REPS = 5
 # GPU vs CPU combined_grads (TF32 off on the card): loss terms within 1e-3
 # relative; per-tensor gradient norms within 5 %, the bound
 # tests/test_grad_parity.py puts on float32 accumulation order amplified
@@ -151,6 +199,60 @@ def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def sphere_timings(sc, fields: int, centers, target, radii, size: int, views: int) -> dict:
+    """CUDA-event medians of the three kernels of ``fields`` and their plain
+    versions, with their bounds: the inputs read once (the distance field's
+    target planes too), the planes written once; operations from the counts
+    above."""
+    prefix = sc.LAUNCH_PREFIX[fields]
+    k = sc.num_fields(fields)
+    args = (fields, centers, target, radii, size, views)
+    fwd = sc.launch_fields(*args, residuals=True)
+    bwd_args = (fields, centers, target, views, [torch.ones_like(p) for p in fwd[:k]], fwd[k:])
+    t = {
+        f"{prefix}_fwd_ms": time_ms(lambda: sc.launch_fields(*args, residuals=True), REPS),
+        f"{prefix}_primal_ms": time_ms(lambda: sc.launch_fields(*args, residuals=False), REPS),
+        f"{prefix}_bwd_ms": time_ms(lambda: sc.launch_fields_bwd(*bwd_args), REPS),
+        f"{prefix}_plain_fwd_ms": time_ms(
+            lambda: sc.fields_plain(*args, residuals=True), PLAIN_REPS, warmup=1),
+        f"{prefix}_plain_primal_ms": time_ms(
+            lambda: sc.fields_plain(*args, residuals=False), PLAIN_REPS, warmup=1),
+        f"{prefix}_plain_bwd_ms": time_ms(lambda: sc.fields_bwd_plain(*bwd_args), PLAIN_REPS,
+                                          warmup=1),
+    }
+    n_img, num_j = centers.shape[:2]
+    pixels = size * size
+    plane_bytes = 4 * n_img * pixels
+    target_bytes = 4 * target.numel() if fields & sc.DIST else 0
+    in_bytes = 4 * (centers.numel() + radii.numel()) + target_bytes
+    updates = n_img * pixels * num_j
+    t[f"{prefix}_fwd_bound"] = bound(in_bytes + 3 * k * plane_bytes, updates * SPHERE_FWD_OPS[fields])
+    t[f"{prefix}_primal_bound"] = bound(in_bytes + k * plane_bytes,
+                                        updates * SPHERE_PRIMAL_OPS[fields])
+    t[f"{prefix}_bwd_bound"] = bound(
+        8 * centers.numel() + target_bytes + 3 * k * plane_bytes,
+        n_img * pixels * SPHERE_BWD_OPS_PIXEL[fields] + n_img * num_j * SPHERE_BWD_OPS_SPHERE[fields])
+    return t
+
+
+def sphere_rows(sc, fields: int, t: dict, stats: dict, launches: dict) -> list[dict]:
+    """The kernels-line rows of the three kernels of ``fields``."""
+    prefix = sc.LAUNCH_PREFIX[fields]
+    rows = []
+    for kind, err_key in (("primal", "primal_max_abs_err"), ("fwd", "fields_max_abs_err"),
+                          ("bwd", "bwd_max_abs_err")):
+        name = f"{prefix}_{kind}"
+        b_ms, b_by = t[f"{name}_bound"]
+        rows.append({
+            "name": name, "route": "cuda", "source": "spherehand_torch/csrc/sphere.cu",
+            "replaces": f"spherehand_tpu/render/sphere_pallas.py:{SPHERE_SOURCES[fields][kind]}",
+            "launches": launches[name], "max_abs_err": stats[err_key], "ms": t[f"{name}_ms"],
+            "plain_ms": t[f"{prefix}_plain_{kind}_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+        })
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -170,7 +272,14 @@ def main() -> int:
     from spherehand_torch.hand.kinematics import forward_kinematics
     from spherehand_torch.hand.skinning import apply_scale, project_faces_planes
     from spherehand_torch.infer import PoseEstimator, float32_precision, load_params_npz
-    from spherehand_torch.losses.multiview import apply_rigid, mutual_transforms
+    from spherehand_torch import kernel_parity
+    from spherehand_torch.constants import Constants
+    from spherehand_torch.losses.multiview import (
+        apply_rigid,
+        mutual_projection_loss,
+        mutual_transforms,
+    )
+    from spherehand_torch.models.estimator import forward as estimator_forward
     from spherehand_torch.render import contracts, raster_cuda, sphere_cuda
     from spherehand_torch.render.adversarial import adversarial_cases, sphere_adversarial_case
     from spherehand_torch.train.config import EngineConfig
@@ -224,7 +333,7 @@ def main() -> int:
             fail(f"{tag}: exact kernel vs plain exact {st}")
         rec_f, box_f = raster_cuda.prepass_fast(fv)
         k_fast = raster_cuda.launch_raster_fast_pooled(rec_f, box_f, s, s, 100.0)
-        p_fast = raster_cuda.raster_fast_pooled_plain(rec_f, box_f, s, s, 100.0)
+        p_fast = raster_cuda.raster_fast_plain(rec_f, box_f, s, s, 100.0)
         torch.cuda.synchronize()
         fast_err = float((k_fast - p_fast).abs().max())
         if not fast_err <= FAST_MAX_ERR:
@@ -235,7 +344,7 @@ def main() -> int:
     _, _, planes8 = hand_planes(8, args.seed)
     fv8 = face_vertices(planes8)
     e_err, f_err, k_fast, p_exact, rec_f, box_f = compare(fv8, samples, 640, "hand B=8")
-    fast_raw = raster_cuda.raster_fast_pooled_plain(rec_f, box_f, samples, samples, None)
+    fast_raw = raster_cuda.raster_fast_plain(rec_f, box_f, samples, samples, None)
     exact_pooled = pool_2x2(torch.clamp(p_exact, max=100.0))
     fst = contracts.fast_stats(k_fast, exact_pooled, fast_raw, p_exact)
     if not contracts.fast_ok(fst):
@@ -273,8 +382,8 @@ def main() -> int:
     for mode, err in errors.items():
         if not err < 25.0:
             fail(f"{mode} mean joint error {err} mm >= 25")
-    for name, n in launches.items():
-        if n < 1:
+    for name in SERVING_KERNELS:
+        if launches[name] < 1:
             fail(f"kernel {name} was not launched on the main path")
     cpu_est = PoseEstimator(params, num_stacks=1, denoise=True, precision="highest",
                             device="cpu")
@@ -300,7 +409,7 @@ def main() -> int:
                 rec_f, box_f, samples, samples, 100.0), REPS),
             "raster_exact_ms": time_ms(lambda: raster_cuda.launch_raster_exact(
                 rec_e, box_e, samples, samples, 640), REPS),
-            "plain_fast_ms": time_ms(lambda: raster_cuda.raster_fast_pooled_plain(
+            "plain_fast_ms": time_ms(lambda: raster_cuda.raster_fast_plain(
                 rec_f, box_f, samples, samples, 100.0), REPS, warmup=1),
             "plain_exact_ms": time_ms(
                 lambda: rasterize_depth(fv, samples, samples), REPS, warmup=1),
@@ -401,8 +510,8 @@ def main() -> int:
     log(f"    {train_s:.2f} s; parameters moved {moved}/{len(before)}; launches {train_launches}")
     if moved != len(before) or tuple(denoised.shape) != (cfg.real_batch, 41, 3):
         fail(f"training moved {moved}/{len(before)} parameters, eval shape {tuple(denoised.shape)}")
-    for name, n in train_launches.items():
-        if n < 1:
+    for name in SERVING_KERNELS + FUSED_SPHERE_KERNELS:
+        if train_launches[name] < 1:
             fail(f"kernel {name} was not launched on the training path")
 
     # ---------------------------------------------------------------- 8
@@ -440,51 +549,172 @@ def main() -> int:
         fail(f"GPU vs CPU combined_grads: terms {term_rel}, gradient norms {gnorm_rel}")
 
     # ---------------------------------------------------------------- 9
-    args_k = (sph_centers, sph_target, sph_radii, size, num_views)
-    fwd = sphere_cuda.launch_fused(*args_k, residuals=True)
-    g_depth, g_dist = torch.ones_like(fwd[0]), torch.ones_like(fwd[1])
-    bwd_args = (sph_centers, sph_target, num_views, g_depth, g_dist, *fwd[2:])
-    sph = {
-        "sphere_fused_fwd_ms": time_ms(lambda: sphere_cuda.launch_fused(*args_k, residuals=True), REPS),
-        "sphere_fused_primal_ms": time_ms(
-            lambda: sphere_cuda.launch_fused(*args_k, residuals=False), REPS),
-        "sphere_fused_bwd_ms": time_ms(lambda: sphere_cuda.launch_fused_bwd(*bwd_args), REPS),
-        "plain_fwd_ms": time_ms(lambda: sphere_cuda.fused_fwd_plain(*args_k), REPS, warmup=1),
-        "plain_primal_ms": time_ms(lambda: sphere_cuda.fused_primal_plain(*args_k), REPS, warmup=1),
-        "plain_bwd_ms": time_ms(lambda: sphere_cuda.fused_bwd_plain(*bwd_args), REPS, warmup=1),
+    sph = sphere_timings(sphere_cuda, sphere_cuda.BOTH, sph_centers, sph_target, sph_radii,
+                         size, num_views)
+    sph.update({
         "synt_step_ms": time_ms(
             lambda: fns.synt_step(state, cfg.lr, fns.draw(gen, real=False)), REPS),
         "combined_step_ms": time_ms(
             lambda: fns.combined_step(state, cfg.lr, fns.draw(gen), real_batch, True), REPS),
         "eval_step_ms": time_ms(
             lambda: fns.eval_step(state, fns.draw(gen, synt=False), real_batch), REPS),
-    }
+    })
     n_img, num_j = sph_centers.shape[:2]
-    pixels = size * size
-    plane_bytes = 4 * n_img * pixels
-    in_bytes = 4 * (sph_centers.numel() + sph_radii.numel() + sph_target.numel())
-    sph["sphere_fused_fwd_bound"] = bound(in_bytes + 6 * plane_bytes,
-                                          n_img * pixels * num_j * SPHERE_FWD_OPS)
-    sph["sphere_fused_primal_bound"] = bound(in_bytes + 2 * plane_bytes,
-                                             n_img * pixels * num_j * SPHERE_PRIMAL_OPS)
-    sph["sphere_fused_bwd_bound"] = bound(
-        4 * (sph_centers.numel() + sph_target.numel()) + 6 * plane_bytes + 4 * sph_centers.numel(),
-        n_img * pixels * SPHERE_BWD_OPS_PIXEL + n_img * num_j * SPHERE_BWD_OPS_SPHERE)
     log(f"[9] N={n_img} J={num_j} S={size}; steps at {cfg.synt_batch} + {cfg.real_batch}x"
         f"{num_views}: " + json.dumps(sph))
-    for name, src, err_key, plain_key in (
-        ("sphere_fused_primal", 227, "primal_max_abs_err", "plain_primal_ms"),
-        ("sphere_fused_fwd", 253, "fields_max_abs_err", "plain_fwd_ms"),
-        ("sphere_fused_bwd", 308, "bwd_max_abs_err", "plain_bwd_ms"),
-    ):
-        b_ms, b_by = sph[f"{name}_bound"]
-        kernel_rows.append({
-            "name": name, "route": "cuda", "source": "spherehand_torch/csrc/sphere.cu",
-            "replaces": f"spherehand_tpu/render/sphere_pallas.py:{src}",
-            "launches": train_launches[name], "max_abs_err": main_sphere[err_key],
-            "ms": sph[f"{name}_ms"], "plain_ms": sph[plain_key], "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None,
-        })
+    kernel_rows += sphere_rows(sphere_cuda, sphere_cuda.BOTH, sph, main_sphere, train_launches)
+
+    # --------------------------------------------------------------- 10 (a)
+    sc = sphere_cuda
+    gathered = sc.gathered_target(sph_target, n_img, num_views).contiguous()
+    field_sets = {
+        f"hands N={n_img}": {sc.DEPTH: (sph_centers, None, sph_radii, 1),
+                             sc.DIST: (sph_centers, gathered, sph_radii, 1),
+                             sc.BOTH: (sph_centers, sph_target, sph_radii, num_views)},
+        "adversarial": {f: (adv[0], adv[1], adv[2], num_views) for f in (sc.DEPTH, sc.DIST, sc.BOTH)},
+    }
+    field_stats = {}
+    for tag, by_fields in field_sets.items():
+        fused_planes = contracts.split_fused_planes(sc.launch_fields(
+            sc.BOTH, *by_fields[sc.BOTH][:3], size, by_fields[sc.BOTH][3], residuals=True))
+        for fields in (sc.DEPTH, sc.DIST):
+            c, t, r, views = by_fields[fields]
+            st = contracts.sphere_kernel_stats(
+                c, t, r, size, views, torch.Generator(device=dev).manual_seed(args.seed + 8),
+                fields)
+            ties = contracts.sphere_tie_violations(st) if tag == "adversarial" else 0
+            same = all(torch.equal(a, b) for a, b in zip(st.pop("kernel")["fwd"], fused_planes[fields]))
+            name = sc.LAUNCH_PREFIX[fields]
+            log(f"[10a] {name} kernels, {tag}: {json.dumps(st)}; tie violations {ties}; "
+                f"planes equal to the fused kernel's: {same}")
+            if not (contracts.sphere_ok(st) and ties == 0 and same):
+                fail(f"{name} kernels ({tag}): {st}, tie violations {ties}, equal to fused {same}")
+            field_stats[(tag, fields)] = st
+
+    # --------------------------------------------------------------- 10 (b)
+    net = train_state_from_params(fns.init_state, params).network
+    mp_args = (train_real.poses, train_real.inv_poses)
+    with float32_precision("highest"):
+        joints = estimator_forward(
+            net, real_dms=train_real.dms * Constants().depth_scale).real_xyz[-1]
+        torch.cuda.synchronize()
+        sphere_cuda.reset_launch_counts()
+        checks = {}
+        for is_mv in (True, False):
+            loss_u, _ = mutual_projection_loss(*mp_args, joints, train_real.dms, sph_radii,
+                                               is_mv=is_mv, fused=False)
+            (g_u,) = torch.autograd.grad(loss_u, joints, retain_graph=True)
+            loss_f, _ = mutual_projection_loss(*mp_args, joints, train_real.dms, sph_radii,
+                                               is_mv=is_mv, fused=True)
+            (g_f,) = torch.autograd.grad(loss_f, joints, retain_graph=True)
+            checks[is_mv] = (float(loss_u.detach()), float(loss_f.detach()),
+                             abs(float(loss_u.detach()) - float(loss_f.detach())) / abs(float(loss_f.detach())),
+                             float((g_u - g_f).abs().max() / g_f.abs().max()))
+            if is_mv:
+                net.zero_grad(set_to_none=True)
+                loss_u.backward(retain_graph=True)
+        with torch.no_grad():
+            mutual_projection_loss(*mp_args, joints, train_real.dms, sph_radii, fused=False)
+        torch.cuda.synchronize()
+    field_launches = dict(sphere_cuda.LAUNCHES)
+    grads_finite = all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                       for p in net.parameters())
+    log(f"[10b] unfused vs fused mutual projection at {tuple(joints.shape)} (TF32 off), "
+        f"is_mv -> (unfused, fused, value rel, joint grad rel): {json.dumps(checks)}; "
+        f"parameter gradients finite {grads_finite}; launches {field_launches}")
+    for is_mv, (_, _, v_rel, g_rel) in checks.items():
+        if not (v_rel <= UNFUSED_LOSS_REL and g_rel <= UNFUSED_GRAD_REL):
+            fail(f"unfused vs fused loss (is_mv {is_mv}): value {v_rel}, joint gradient {g_rel}")
+    if not grads_finite:
+        fail("a parameter gradient of the per-field path is not finite")
+    for name in PER_FIELD_KERNELS:
+        if field_launches[name] < 1:
+            fail(f"kernel {name} was not launched on the per-field path")
+
+    # --------------------------------------------------------------- 10 (c)
+    torch.cuda.synchronize()
+    raster_cuda.reset_launch_counts()
+    parity = kernel_parity.run(dev, args.seed + 9)
+    torch.cuda.synchronize()
+    fast_launches = raster_cuda.LAUNCHES["raster_fast"]
+    with np.load(SPHERE_PARITY) as gold:
+        tpu_loss, tpu_norm = float(gold["stack_loss"]), float(gold["stack_grad_norm"])
+    loss_rel = abs(parity["stack_loss"] - tpu_loss) / abs(tpu_loss)
+    norm_rel = abs(parity["stack_grad_norm"] - tpu_norm) / abs(tpu_norm)
+    log(f"[10c] kernel_parity: {json.dumps(parity)}; against the TPU's stack_loss {loss_rel:.3g}, "
+        f"gradient norm {norm_rel:.3g}; raster_fast launches {fast_launches}")
+    sphere_rel = max(parity[k] for k in parity if k.endswith(("_fwd_rel", "_grad_rel", "_val_rel")))
+    if not (parity["fast_iou"] > FAST_IOU_MIN and parity["fast_p99_diff"] < FAST_P99_MAX
+            and parity["fastpool_median"] < FASTPOOL_MEDIAN_MAX
+            and parity["exact_coverage_match"] == 1.0 and parity["exact_median_diff"] == 0.0
+            and sphere_rel <= contracts.SPHERE_BWD_REL
+            and loss_rel <= STACK_LOSS_REL and norm_rel <= STACK_GRAD_NORM_REL):
+        fail(f"kernel_parity out of contract: {parity}; stack loss {loss_rel}, norm {norm_rel}")
+
+    def check_fast(fv, sx, sy, tag):
+        rec, box = raster_cuda.prepass_fast(fv)
+        kern = raster_cuda.launch_raster_fast(rec, box, sx, sy)
+        plain = raster_cuda.raster_fast_plain(rec, box, sx, sy)
+        torch.cuda.synchronize()
+        err = float((kern - plain).abs().max())
+        cover = bool(torch.equal(kern < 999, plain < 999))
+        if not (err <= FAST_MAX_ERR and cover):
+            fail(f"{tag}: raster_fast vs plain max |diff| {err}, identical coverage {cover}")
+        return kern, err
+
+    fast_rows = {}
+    for batch in BATCHES:
+        _, _, planes = hand_planes(batch, args.seed + 3)
+        fv = face_vertices(planes)
+        _, err = check_fast(fv, samples, samples, f"hands B={batch}")
+        fast_rows[batch] = (fv, planes, err)
+    gen_grid = torch.Generator(device=dev).manual_seed(args.seed + 10)
+    grid_x = torch.sort(torch.rand(100, generator=gen_grid, device=dev) * 640.0).values
+    grid_y = (torch.linspace(0.0, 1.0, 77, device=dev) ** 2) * 639.0
+    _, grid_err = check_fast(fast_rows[MAIN_BATCH][0], grid_x, grid_y, "non-uniform 100 x 77 grid")
+    flips = {}
+    for name, faces, fsize in adversarial_cases():
+        s_adv = samples if fsize == 640 else torch.arange(fsize, dtype=torch.float32, device=dev)
+        fv_adv = torch.as_tensor(faces, device=dev)
+        kern, _ = check_fast(fv_adv, s_adv, s_adv, name)
+        exact_adv = rasterize_depth(fv_adv, s_adv, s_adv, fsize, fsize)
+        flips[name] = float(((kern < 999) != (exact_adv < 999)).float().mean())
+    log(f"[10c] raster_fast vs plain: max |diff| " +
+        ", ".join(f"B={b} {e:.3g}" for b, (_, _, e) in fast_rows.items()) +
+        f", non-uniform grid {grid_err:.3g}; fast-vs-exact flips {json.dumps(flips)}")
+    if not max(flips.values()) < ADVERSARIAL_FLIP_MAX:
+        fail(f"raster_fast vs exact coverage flips on the adversarial sets: {flips}")
+    if fast_launches < 1:
+        fail("kernel raster_fast was not launched by kernel_parity")
+
+    # --------------------------------------------------------------- 10 (d)
+    timings = {}
+    for fields, target, views in ((sc.DEPTH, None, 1), (sc.DIST, gathered, 1)):
+        timings.update(sphere_timings(sc, fields, sph_centers, target, sph_radii, size, views))
+    for batch, (fv, planes, _) in fast_rows.items():
+        rec_f, box_f = raster_cuda.prepass_fast(planes=planes)
+        timings[f"raster_fast_ms_B{batch}"] = time_ms(
+            lambda: raster_cuda.launch_raster_fast(rec_f, box_f, samples, samples), REPS)
+        timings[f"plain_raster_fast_ms_B{batch}"] = time_ms(
+            lambda: raster_cuda.raster_fast_plain(rec_f, box_f, samples, samples),
+            PLAIN_REPS if batch == MAIN_BATCH else 2, warmup=1)
+        n = samples.numel()
+        timings[f"raster_fast_bound_B{batch}"] = bound(
+            4 * (rec_f.numel() + box_f.numel() + 2 * n + batch * n * n),
+            face_sample_tests(box_f, samples, samples) * FAST_OPS_PER_TEST)
+    log(f"[10d] N={n_img} J={num_j} S={size}; raster at 128 x 128 samples: "
+        + json.dumps(timings))
+    for fields in (sc.DEPTH, sc.DIST):
+        kernel_rows += sphere_rows(sc, fields, timings, field_stats[(f"hands N={n_img}", fields)],
+                                   field_launches)
+    b_ms, b_by = timings[f"raster_fast_bound_B{MAIN_BATCH}"]
+    kernel_rows.append({
+        "name": "raster_fast", "route": "cuda", "source": "spherehand_torch/csrc/raster.cu",
+        "replaces": "spherehand_tpu/render/raster_pallas.py:524", "launches": fast_launches,
+        "max_abs_err": fast_rows[MAIN_BATCH][2], "ms": timings[f"raster_fast_ms_B{MAIN_BATCH}"],
+        "plain_ms": timings[f"plain_raster_fast_ms_B{MAIN_BATCH}"], "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": None,
+    })
 
     print(json.dumps({"kernels": kernel_rows}))
     print(smi)

@@ -1,6 +1,6 @@
 // Triangle z-buffer rasterizers for Hopper (sm_90a), bound with ctypes.
 //
-// Two kernels replace the TPU Pallas kernels of
+// Three kernels replace the TPU Pallas kernels of
 // spherehand_tpu/render/raster_pallas.py:
 //
 //   raster_fast_pooled  <- _raster_kernel_fast_paired (raster_pallas.py:633)
@@ -8,6 +8,10 @@
 //       1/q from the fused affine reciprocal-depth row, z-min over faces,
 //       epilogue ((t0 + t1) + (t2 + t3)) * 0.25 of min(z, clamp) written
 //       straight into the pooled (B, H, W) canvas.
+//   raster_fast         <- _raster_kernel_fast (raster_pallas.py:524)
+//       the same coverage and depth (one shared body, fast_cover) at any
+//       sample grid, one sample a thread, raw (B, Sy, Sx) buffer with
+//       background 1000, no pooling.
 //   raster_exact        <- _raster_kernel_exact (raster_pallas.py:756)
 //       the reference CUDA scanline-span coverage (ceil/trunc spans,
 //       vertical-edge flags, precomputed column bounds), depth from clamped
@@ -142,6 +146,40 @@ __device__ __forceinline__ float clamp01(float w) {
   return w < 0.0f ? 0.0f : (w > 1.0f ? 1.0f : w);
 }
 
+// One staged fast face: its record and box, read from shared memory once
+// for all the samples a thread owns.
+struct FastFace {
+  float a0, b0, c0, a1, b1, c1, aq, bq, cq;
+  float4 box;
+};
+
+__device__ __forceinline__ FastFace load_fast_face(const float* s_rec, const float4* s_box,
+                                                   int k) {
+  FastFace f;
+  f.a0 = s_rec[0 * kThreads + k];
+  f.b0 = s_rec[1 * kThreads + k];
+  f.c0 = s_rec[2 * kThreads + k];
+  f.a1 = s_rec[3 * kThreads + k];
+  f.b1 = s_rec[4 * kThreads + k];
+  f.c1 = s_rec[5 * kThreads + k];
+  f.aq = s_rec[6 * kThreads + k];
+  f.bq = s_rec[7 * kThreads + k];
+  f.cq = s_rec[8 * kThreads + k];
+  f.box = s_box[k];
+  return f;
+}
+
+// Fast-mode coverage of sample (x, y) by face f, shared by both fast
+// kernels: inside the face box and all three raw barycentrics >= 0; a
+// covered sample keeps min(z, 1/q) (fminf drops a NaN depth).
+__device__ __forceinline__ void fast_cover(const FastFace& f, float x, float y, float& z) {
+  if (!(x >= f.box.x && x <= f.box.y && y >= f.box.z && y <= f.box.w)) return;
+  const float w0 = f.a0 * x + f.b0 * y + f.c0;
+  const float w1 = f.a1 * x + f.b1 * y + f.c1;
+  const float w2 = 1.0f - w0 - w1;
+  if (w0 >= 0.0f && w1 >= 0.0f && w2 >= 0.0f) z = fminf(z, 1.0f / (f.aq * x + f.bq * y + f.cq));
+}
+
 // Thread (col, row) of the tile owns output pixel (oy, ox) and its four
 // samples {sx[2ox], sx[2ox+1]} x {sy[2oy], sy[2oy+1]}.
 __global__ void __launch_bounds__(kThreads)
@@ -177,26 +215,12 @@ raster_fast_pooled_kernel(const float* __restrict__ records, const float4* __res
                                            s_count);
     if (row_ok) {
       for (int k = 0; k < n; ++k) {
-        const float4 bd = s_box[k];
-        if (bd.w < wy_lo || bd.z > wy_hi) continue;  // warp-uniform row test
-        const float a0 = s_rec[0 * kThreads + k], b0 = s_rec[1 * kThreads + k];
-        const float c0 = s_rec[2 * kThreads + k], a1 = s_rec[3 * kThreads + k];
-        const float b1 = s_rec[4 * kThreads + k], c1 = s_rec[5 * kThreads + k];
-        const float aq = s_rec[6 * kThreads + k], bq = s_rec[7 * kThreads + k];
-        const float cq = s_rec[8 * kThreads + k];
-        auto test = [&](float x, float y, float& z) {
-          if (!(x >= bd.x && x <= bd.y && y >= bd.z && y <= bd.w)) return;
-          const float w0 = a0 * x + b0 * y + c0;
-          const float w1 = a1 * x + b1 * y + c1;
-          const float w2 = 1.0f - w0 - w1;
-          if (w0 >= 0.0f && w1 >= 0.0f && w2 >= 0.0f) {
-            z = fminf(z, 1.0f / (aq * x + bq * y + cq));  // fminf drops NaN
-          }
-        };
-        test(x0, y0, z00);
-        test(x1, y0, z01);
-        test(x0, y1, z10);
-        test(x1, y1, z11);
+        if (s_box[k].w < wy_lo || s_box[k].z > wy_hi) continue;  // warp-uniform row test
+        const FastFace f = load_fast_face(s_rec, s_box, k);
+        fast_cover(f, x0, y0, z00);
+        fast_cover(f, x1, y0, z01);
+        fast_cover(f, x0, y1, z10);
+        fast_cover(f, x1, y1, z11);
       }
     }
     __syncthreads();
@@ -206,6 +230,45 @@ raster_fast_pooled_kernel(const float* __restrict__ records, const float4* __res
     const float t2 = fminf(z10, pool_clamp), t3 = fminf(z11, pool_clamp);
     out[((size_t)b * out_h + oy) * out_w + ox] = ((t0 + t1) + (t2 + t3)) * 0.25f;
   }
+}
+
+// Thread (col, row) of the tile owns sample (j, i) at (sx[i], sy[j]).
+__global__ void __launch_bounds__(kThreads)
+raster_fast_kernel(const float* __restrict__ records, const float4* __restrict__ boxes,
+                   const float* __restrict__ sample_x, const float* __restrict__ sample_y,
+                   float* __restrict__ out, int num_faces, int sx_n, int sy_n) {
+  __shared__ float s_rec[kFieldsFast * kThreads];
+  __shared__ float4 s_box[kThreads];
+  __shared__ int s_count[kWarps];
+  __shared__ float s_part[4][kWarps];
+  __shared__ float s_range[4];
+
+  const int b = blockIdx.z;
+  const int i = blockIdx.x * kTileW + (threadIdx.x & 31);
+  const int j = blockIdx.y * kTileH + (threadIdx.x >> 5);
+  const bool col_ok = i < sx_n, row_ok = j < sy_n;  // row_ok is warp-uniform
+  const float x = col_ok ? sample_x[i] : 0.0f;
+  const float y = row_ok ? sample_y[j] : 0.0f;  // same in the warp
+  const bool own = col_ok && row_ok;
+  block_range(own ? x : INFINITY, own ? x : -INFINITY, own ? y : INFINITY,
+              own ? y : -INFINITY, s_part, s_range);
+
+  const float* rec = records + (size_t)b * num_faces * kFieldsFast;
+  const float4* box = boxes + (size_t)b * num_faces;
+  float z = kBackground;
+
+  for (int base = 0; base < num_faces; base += kThreads) {
+    const int n = stage_faces<kFieldsFast>(rec, box, base, num_faces, s_range, s_rec, s_box,
+                                           s_count);
+    if (row_ok) {
+      for (int k = 0; k < n; ++k) {
+        if (s_box[k].w < y || s_box[k].z > y) continue;  // warp-uniform row test
+        fast_cover(load_fast_face(s_rec, s_box, k), x, y, z);
+      }
+    }
+    __syncthreads();
+  }
+  if (own) out[((size_t)b * sy_n + j) * sx_n + i] = z;
 }
 
 // Thread (col, row) of the tile owns sample (j, i) at (sx[i], sy[j]).
@@ -289,6 +352,19 @@ int shx_raster_fast_pooled(const float* records, const float* boxes, const float
                                 (cudaStream_t)stream>>>(
         records, reinterpret_cast<const float4*>(boxes), sample_x, sample_y, out, num_faces,
         out_w, out_h, pool_clamp);
+  }
+  return (int)cudaGetLastError();
+}
+
+// records (B, F, 9), boxes (B, F, 4), sample_x (Sx,), sample_y (Sy,),
+// out (B, Sy, Sx). Returns cudaGetLastError() after the launch.
+int shx_raster_fast(const float* records, const float* boxes, const float* sample_x,
+                    const float* sample_y, float* out, int batch, int num_faces, int sx_n,
+                    int sy_n, void* stream) {
+  if (batch > 0 && sx_n > 0 && sy_n > 0) {
+    raster_fast_kernel<<<grid_for(sx_n, sy_n, batch), kThreads, 0, (cudaStream_t)stream>>>(
+        records, reinterpret_cast<const float4*>(boxes), sample_x, sample_y, out, num_faces,
+        sx_n, sy_n);
   }
   return (int)cudaGetLastError();
 }

@@ -1,24 +1,35 @@
 """Multi-view self-supervision: the mutual-projection and consistency losses.
 
 Counterpart of ``spherehand_tpu/losses/multiview.py`` (reference
-mesh/multiview_utility.py:9-167). Camera-pose quirk kept: translations are
+mesh/multiview_utility.py:9-237). Camera-pose quirk kept: translations are
 read from column [:3, 3], which the NYU generator leaves ~0 (it writes its
 translations into row [3, :3]), so cross-view transforms are effectively
 rotation-only.
 
-``mutual_projection_loss`` is the fused form of the JAX package
-(multiview.py:111-138) on every device: one call of
-:func:`spherehand_torch.render.sphere_cuda.sphere_min_depth_and_d2m` gives
-both fields of the projected sphere set against the observed maps, and its
-backward the summed centre gradient. On the CPU that op runs its plain
-versions, on CUDA its kernels.
+``mutual_projection_loss`` has the JAX package's two branches
+(multiview.py:111-157), chosen as there by where the tensors live
+(``render.sphere._fuse_spheres``):
+
+- fused, on CUDA: one call of
+  :func:`spherehand_torch.render.sphere_cuda.sphere_min_depth_and_d2m` gives
+  both fields of the projected sphere set against the observed maps, and its
+  backward the summed centre gradient;
+- unfused, on the CPU: :func:`mutual_projection` renders the depth field and
+  :func:`spherehand_torch.render.sphere.data_to_model_distance` measures the
+  distance field, on the broadcast (B, V, V) pairs and again per view on the
+  diagonal, with the plain broadcast fields the goldens pin.
+
+``fused=`` overrides the choice, so that the two can be held against each
+other on one device; on CUDA both run kernels.
 """
 from __future__ import annotations
 
 import torch
 
 from spherehand_torch.ops.reduce import bmean, bmean_keep
-from spherehand_torch.render.sphere_cuda import sphere_min_depth_and_d2m
+from spherehand_torch.ops.softargmax import heatmap_variance
+from spherehand_torch.render.sphere import _fuse_spheres, data_to_model_distance, render_spheres
+from spherehand_torch.render.sphere_cuda import sphere_min_depth, sphere_min_depth_and_d2m
 
 
 def mutual_transforms(poses: torch.Tensor, inv_poses: torch.Tensor) -> torch.Tensor:
@@ -34,6 +45,26 @@ def apply_rigid(mats: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     return rotated + mats[..., None, :3, 3]
 
 
+def mutual_projection(poses: torch.Tensor, inv_poses: torch.Tensor, joints: torch.Tensor,
+                      radii: torch.Tensor, size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Render every view's spheres into every other view.
+
+    joints (B, V, J, 3) mm per view -> (depth maps (B, V, V, S, S),
+    projected joints (B, V, V, J, 3)), [b, i, j] holding view i's joints in
+    view j's camera (multiview_utility.py:55-77). The view transforms carry
+    no gradient. On CUDA the depth maps are the ``sphere_min_depth``
+    kernel's, on the CPU the min over the plain per-sphere maps."""
+    mats = mutual_transforms(poses, inv_poses).detach()
+    projected = apply_rigid(mats, joints[:, :, None])  # (B, V, V, J, 3)
+    if _fuse_spheres(projected.device):
+        b, vi, vj, num_j, _ = projected.shape
+        depth_maps = sphere_min_depth(
+            projected.reshape(b * vi * vj, num_j, 3), radii, size).reshape(b, vi, vj, size, size)
+    else:
+        depth_maps = render_spheres(projected, radii, size).amin(dim=-3)
+    return depth_maps, projected
+
+
 def mutual_projection_loss(
     poses: torch.Tensor,
     inv_poses: torch.Tensor,
@@ -42,31 +73,44 @@ def mutual_projection_loss(
     radii: torch.Tensor,
     is_mv: bool | torch.Tensor = True,
     weights: torch.Tensor | None = None,
+    fused: bool | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Model <-> data alignment across views (multiview_utility.py:90-130).
 
     joints (B, V, J, 3) mm per view; real_dms (B, V, S, S) observed depth in
     mm (background 100). The mv branch covers all V x V pairs (x9), the sv
     branch the own-view diagonal (x3); each is m2d + 500 d2m. Both are
-    computed and ``is_mv`` selects. Returns (loss, projected depth maps
-    (B, V, V, S, S)).
+    computed and ``is_mv`` selects. ``fused`` picks the fused or unfused
+    form (default: fused on CUDA, unfused on the CPU). Returns (loss,
+    projected depth maps (B, V, V, S, S)).
     """
     size = real_dms.shape[-1]
     num_views = real_dms.shape[1]
     diag = torch.arange(num_views, device=real_dms.device)
-    mats = mutual_transforms(poses, inv_poses).detach()
-    projected = apply_rigid(mats, joints[:, :, None])  # (B, V, V, J, 3)
-    b, vi, vj, num_j, _ = projected.shape
-    depth, dist = sphere_min_depth_and_d2m(
-        projected.reshape(b * vi * vj, num_j, 3),
-        real_dms.reshape(b * num_views, size, size),
-        radii, size, views=num_views,
-    )
-    projected_dms = depth.reshape(b, vi, vj, size, size)
-    dist_field = torch.clamp(dist.reshape(b, vi, vj, size, size), 0.0, 50.0)
-    d2m_mv = bmean(dist_field, weights) * 9.0
-    # the diagonal [b, v, v] of the same field is the own-view d2m term
-    d2m_sv = bmean_keep(dist_field[:, diag, diag], weights, (2, 3)).sum() * 3.0
+    if fused is None:
+        fused = _fuse_spheres(real_dms.device)
+    if fused:
+        mats = mutual_transforms(poses, inv_poses).detach()
+        projected = apply_rigid(mats, joints[:, :, None])  # (B, V, V, J, 3)
+        b, vi, vj, num_j, _ = projected.shape
+        depth, dist = sphere_min_depth_and_d2m(
+            projected.reshape(b * vi * vj, num_j, 3),
+            real_dms.reshape(b * num_views, size, size),
+            radii, size, views=num_views,
+        )
+        projected_dms = depth.reshape(b, vi, vj, size, size)
+        dist_field = torch.clamp(dist.reshape(b, vi, vj, size, size), 0.0, 50.0)
+        d2m_mv = bmean(dist_field, weights) * 9.0
+        # the diagonal [b, v, v] of the same field is the own-view d2m term
+        d2m_sv = bmean_keep(dist_field[:, diag, diag], weights, (2, 3)).sum() * 3.0
+    else:
+        projected_dms, projected = mutual_projection(poses, inv_poses, joints, radii, size)
+        # target[b, i, j] = real_dms[b, j]
+        target = real_dms[:, None].expand_as(projected_dms)
+        d2m_mv = data_to_model_distance(target, projected, radii, weights) * 9.0
+        joints_diag = projected[:, diag, diag]  # (B, V, J, 3)
+        d2m_sv = sum(data_to_model_distance(real_dms[:, v], joints_diag[:, v], radii, weights)
+                     for v in range(num_views)) * 3.0
 
     m2d_mv = bmean((projected_dms - real_dms[:, None]) ** 2, weights) * 9.0
     proj_diag = projected_dms[:, diag, diag]  # (B, V, S, S)
@@ -87,3 +131,31 @@ def multiview_consistency_loss(
     num_views = canonical.shape[1]
     med = torch.sort(canonical, dim=1).values[:, (num_views - 1) // 2]
     return bmean((med[:, None] - canonical) ** 2, weights)
+
+
+def _pick_views(canonical: torch.Tensor, view: torch.Tensor) -> torch.Tensor:
+    """canonical (B, V, J, 3), view (B, J) -> the chosen view's joints (B, 1, J, 3)."""
+    index = view[:, None, :, None].expand(-1, 1, -1, canonical.shape[-1])
+    return torch.gather(canonical, 1, index)
+
+
+def weighted_multiview_consistency_loss(
+    poses: torch.Tensor, joints: torch.Tensor, hm_weight: torch.Tensor
+) -> torch.Tensor:
+    """Sum of squared deviations of every view's canonical joints from those
+    of the view with the highest confidence ``hm_weight`` (B, V, J)
+    (WeightedMultiviewConsistencyLoss, multiview_utility.py:170-201; the
+    reference never constructs it)."""
+    canonical = apply_rigid(poses, joints)
+    return ((_pick_views(canonical, hm_weight.argmax(dim=1)) - canonical) ** 2).sum()
+
+
+def fuse_mv_pose(joints: torch.Tensor, poses: torch.Tensor, inv_poses: torch.Tensor,
+                 uv_hms: torch.Tensor) -> torch.Tensor:
+    """Per joint, the canonical estimate of the view whose heatmap (B, V, J,
+    H, W) has the lowest spatial variance (weight exp(-10 var)), mapped back
+    into every view: (B, V, J, 3) (FuseMvPose, multiview_utility.py:208-237;
+    the reference never calls it)."""
+    canonical = apply_rigid(poses, joints)
+    weight = torch.exp(-10.0 * heatmap_variance(uv_hms)).detach()
+    return apply_rigid(inv_poses, _pick_views(canonical, weight.argmax(dim=1)))

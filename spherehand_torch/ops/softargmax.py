@@ -1,7 +1,7 @@
-"""Soft-argmax 3D joint recovery.
+"""Soft-argmax 3D joint recovery and heatmap statistics.
 
 Counterpart of ``spherehand_tpu/ops/softargmax.py`` (reference
-network/util_modules.py:126-201). All reductions are over the trailing pixel
+network/util_modules.py:126-240). All reductions are over the trailing pixel
 axes of (..., J, H, W) heatmap stacks.
 """
 from __future__ import annotations
@@ -41,3 +41,22 @@ def recover_xyz(uv_hms: torch.Tensor, d_hms: torch.Tensor) -> torch.Tensor:
     fx = size / _C.cube_mm
     c = size / 2.0
     return torch.stack([(u - c) / fx, (v - c) / fx, d / _C.depth_scale], dim=-1)
+
+
+def heatmap_variance(hms: torch.Tensor) -> torch.Tensor:
+    """Spatial variance of heatmap mass, a per-joint confidence proxy:
+    (..., J, H, W) -> (..., J). The mean uses softmax(sigma=25) weights, the
+    variance relu-normalised weights, over the centred unit grid
+    ((g - S/2) / S) (reference util_modules.py:219-240)."""
+    size_w, size_h = hms.shape[-1], hms.shape[-2]
+    u_grid = ((torch.arange(size_w, dtype=hms.dtype, device=hms.device) - size_w / 2.0)
+              / size_w)[None, :]
+    v_grid = ((torch.arange(size_h, dtype=hms.dtype, device=hms.device) - size_h / 2.0)
+              / size_h)[:, None]
+    soft = spatial_softmax(hms, sigma=25.0)
+    normed = spatial_normalize(hms)
+    u_mean = (soft * u_grid).sum(dim=(-2, -1))[..., None, None]
+    u_var = (normed * (u_grid - u_mean) ** 2).sum(dim=(-2, -1))
+    v_mean = (soft * v_grid).sum(dim=(-2, -1))[..., None, None]
+    v_var = (normed * (v_grid - v_mean) ** 2).sum(dim=(-2, -1))
+    return u_var + v_var

@@ -18,12 +18,15 @@ its host time. For each piece it prints one JSON line, per call:
 - ``top``: the recorded device ops with the most time, as [name, ms, count].
 
 Pieces, at B = 128 (the main path's batch) and 1024: the geometry front end
-(``project_faces_planes``), each pre-pass, each kernel, ``render_depth_64``
-fast and exact, ``synthesize`` (fast, with noise) and
-``PoseEstimator.predict`` with the shipped weights. Then, at ``EngineConfig``
-defaults (48 synthetic + 25 x 3 real, from the shipped weights): each fused
-sphere kernel alone at the combined step's N = 225 images, and the train
-steps ``synt_step`` and ``combined_step``, each with its draws, and
+(``project_faces_planes``), each pre-pass, each raster kernel (the raw
+``raster_fast`` at the same 128 x 128 samples), ``render_depth_64`` fast and
+exact, ``synthesize`` (fast, with noise) and ``PoseEstimator.predict`` with
+the shipped weights. Then, at ``EngineConfig`` defaults (48 synthetic + 25 x
+3 real, from the shipped weights): each sphere kernel alone (fused, min
+depth, nearest distance) at the combined step's N = 225 images, the
+mutual-projection loss forward and backward from the estimator's joints in
+its unfused (per-field kernels) and fused form, and the train steps
+``synt_step`` and ``combined_step``, each with its draws, and
 ``eval_step``.
 
 Usage: python -m spherehand_torch.profile_path
@@ -180,6 +183,7 @@ def _profile_render_and_serve(model, samples, estimator) -> None:
             "prepass_exact": lambda: raster_cuda.prepass_exact(planes=planes),
             "kernel_fast": lambda: raster_cuda.launch_raster_fast_pooled(
                 rec_f, box_f, samples, samples, 100.0),
+            "kernel_fast_raw": lambda: raster_cuda.launch_raster_fast(rec_f, box_f, samples, samples),
             "kernel_exact": lambda: raster_cuda.launch_raster_exact(
                 rec_e, box_e, samples, samples, 640),
             "render_fast": lambda: render_depth_64(model, tr, rand_f),
@@ -196,7 +200,13 @@ def _profile_train_steps(model) -> None:
     from spherehand_torch.convert import train_state_from_params
     from spherehand_torch.data.pseudo_real import render_multiview_batch
     from spherehand_torch.infer import load_params_npz
-    from spherehand_torch.losses.multiview import apply_rigid, mutual_transforms
+    from spherehand_torch.constants import Constants
+    from spherehand_torch.losses.multiview import (
+        apply_rigid,
+        mutual_projection_loss,
+        mutual_transforms,
+    )
+    from spherehand_torch.models.estimator import forward
     from spherehand_torch.render import sphere_cuda
     from spherehand_torch.train.config import EngineConfig
     from spherehand_torch.train.steps import NUM_VIEWS, RealBatch, build_steps
@@ -207,21 +217,44 @@ def _profile_train_steps(model) -> None:
     gen = torch.Generator(device=model.kp_radius.device).manual_seed(SEED)
     real = render_multiview_batch(model, gen, cfg.real_batch)
     batch = RealBatch(*real[:4])
-    # the sphere kernels alone at the combined step's shapes (N = 25 x 3 x 3)
+    # the sphere kernels alone at the combined step's shapes (N = 25 x 3 x 3);
+    # the distance field alone reads the gathered targets, as d2m_nearest does
+    sc = sphere_cuda
     centers = apply_rigid(mutual_transforms(real.poses, real.inv_poses), real.keypoints[:, :, None])
-    sph = (centers.reshape(-1, model.kp_radius.shape[0], 3).contiguous(),
-           real.dms.reshape(-1, *real.dms.shape[2:]).contiguous(), model.kp_radius,
-           real.dms.shape[-1], NUM_VIEWS)
-    planes = sphere_cuda.launch_fused(*sph, residuals=True)
-    grads = (torch.ones_like(planes[0]), torch.ones_like(planes[1]))
-    pieces = {
-        "sphere_fused_fwd": lambda: sphere_cuda.launch_fused(*sph, residuals=True),
-        "sphere_fused_primal": lambda: sphere_cuda.launch_fused(*sph, residuals=False),
-        "sphere_fused_bwd": lambda: sphere_cuda.launch_fused_bwd(
-            sph[0], sph[1], NUM_VIEWS, *grads, *planes[2:]),
-    }
-    for name, fn in pieces.items():
-        row = {"piece": name, "batch": f"N={sph[0].shape[0]}", **profile_piece(fn)}
+    centers = centers.reshape(-1, model.kp_radius.shape[0], 3).contiguous()
+    target = real.dms.reshape(-1, *real.dms.shape[2:]).contiguous()
+    size = real.dms.shape[-1]
+    inputs = {sc.BOTH: (target, NUM_VIEWS), sc.DEPTH: (None, 1),
+              sc.DIST: (sc.gathered_target(target, centers.shape[0], NUM_VIEWS).contiguous(), 1)}
+    for fields, (tgt, views) in inputs.items():
+        args = (fields, centers, tgt, model.kp_radius, size, views)
+        planes = sc.launch_fields(*args, residuals=True)
+        k = sc.num_fields(fields)
+        bwd = (fields, centers, tgt, views, [torch.ones_like(p) for p in planes[:k]], planes[k:])
+        prefix = sc.LAUNCH_PREFIX[fields]
+        pieces = {
+            f"{prefix}_fwd": lambda a=args: sc.launch_fields(*a, residuals=True),
+            f"{prefix}_primal": lambda a=args: sc.launch_fields(*a, residuals=False),
+            f"{prefix}_bwd": lambda b=bwd: sc.launch_fields_bwd(*b),
+        }
+        for name, fn in pieces.items():
+            row = {"piece": name, "batch": f"N={centers.shape[0]}", **profile_piece(fn)}
+            print(json.dumps(row), flush=True)
+    # the mutual-projection loss from the estimator's joints, forward and
+    # backward to the joints: per-field kernels (unfused) and fused
+    with torch.no_grad():
+        joints = forward(state.network,
+                         real_dms=batch.dms * Constants().depth_scale).real_xyz[-1]
+
+    def mutual_projection(fused: bool):
+        leaf = joints.clone().requires_grad_(True)
+        loss, _ = mutual_projection_loss(batch.poses, batch.inv_poses, leaf, batch.dms,
+                                         model.kp_radius, fused=fused)
+        loss.backward()
+
+    for name, fused in (("mutual_projection_unfused", False), ("mutual_projection_fused", True)):
+        row = {"piece": name, "batch": f"{cfg.real_batch}x{NUM_VIEWS}",
+               **profile_piece(lambda f=fused: mutual_projection(f))}
         print(json.dumps(row), flush=True)
     pieces = {
         "synt_step": lambda: fns.synt_step(state, cfg.lr, fns.draw(gen, real=False)),

@@ -7,7 +7,7 @@
   > 0.999, p99 |diff| < 0.5 mm on jointly covered raw samples, pooled median
   |diff| < 0.05 mm, fraction of pooled pixels more than 0.5 mm off < 0.005.
 
-- The fused sphere kernels against their plain versions (below).
+- The sphere kernels against their plain versions (below).
 
 Inputs are numpy arrays or tensors (moved to the host); raw buffers use
 background 1000, pooled ones the clamp 100.
@@ -62,14 +62,14 @@ def fast_ok(stats: dict) -> bool:
     return ok
 
 
-# The fused sphere kernels (render/sphere_cuda.py) against their plain
-# versions on the same inputs: forward fields and argmin planes identical
-# (both round operation for operation in one order), weight planes within
-# SPHERE_WEIGHT_ULPS, the backward within SPHERE_BWD_REL (max |diff| over max
-# |reference|; the sums are taken in another order) of fused_bwd_plain on the
-# kernel's own planes and of autograd through fused_primal_plain, two
-# backward runs bit-identical, and the primal kernel's fields equal to the
-# forward kernel's.
+# The sphere kernels (render/sphere_cuda.py) of one field set against their
+# plain versions on the same inputs: forward fields and argmin planes
+# identical (both round operation for operation in one order), weight planes
+# within SPHERE_WEIGHT_ULPS, the backward within SPHERE_BWD_REL (max |diff|
+# over max |reference|; the sums are taken in another order) of the plain
+# backward on the kernel's own planes and of autograd through the plain
+# primal fields, two backward runs bit-identical, and the primal kernel's
+# fields equal to the forward kernel's.
 SPHERE_WEIGHT_ULPS = 1
 SPHERE_BWD_REL = 1e-5
 
@@ -85,30 +85,39 @@ def _rel(a, b) -> float:
 
 
 def sphere_kernel_stats(centers, target, radii, size: int, views: int,
-                        generator: torch.Generator) -> dict:
-    """Run the three sphere kernels and their plain versions on one input
-    set (CUDA tensors) with random cotangents; returns the statistics the
-    contract above reads, and the kernel outputs under ``"kernel"``."""
-    fwd_k = sc.launch_fused(centers, target, radii, size, views, residuals=True)
-    fwd_p = sc.fused_fwd_plain(centers, target, radii, size, views)
-    prim_k = sc.launch_fused(centers, target, radii, size, views, residuals=False)
-    prim_p = sc.fused_primal_plain(centers, target, radii, size, views)
-    g_depth, g_dist = (torch.rand(fwd_k[0].shape, generator=generator, device=centers.device)
-                       * 2.0 - 1.0 for _ in range(2))
-    bwd_k = sc.launch_fused_bwd(centers, target, views, g_depth, g_dist, *fwd_k[2:])
-    bwd_k2 = sc.launch_fused_bwd(centers, target, views, g_depth, g_dist, *fwd_k[2:])
-    bwd_p = sc.fused_bwd_plain(centers, target, views, g_depth, g_dist, *fwd_k[2:])
+                        generator: torch.Generator, fields: int = sc.BOTH) -> dict:
+    """Run the sphere kernels of ``fields`` (``sc.DEPTH``, ``sc.DIST`` or
+    ``sc.BOTH``) and their plain versions on one input set (CUDA tensors)
+    with random cotangents; returns the statistics the contract above reads,
+    and the kernel outputs under ``"kernel"``: ``fwd`` (the fields, then
+    each field's argmin and weight planes), ``primal`` and ``bwd``. The
+    cotangents are drawn for both fields whatever ``fields`` is, so a
+    generator seeded alike gives every field set the same ones."""
+    k = sc.num_fields(fields)
+    args = (fields, centers, target, radii, size, views)
+    fwd_k = sc.launch_fields(*args, residuals=True)
+    fwd_p = sc.fields_plain(*args, residuals=True)
+    prim_k = sc.launch_fields(*args, residuals=False)
+    prim_p = sc.fields_plain(*args, residuals=False)
+    g_both = [torch.rand((centers.shape[0], size, size), generator=generator,
+                         device=centers.device) * 2.0 - 1.0 for _ in range(2)]
+    grads = [g for g, f in zip(g_both, (sc.DEPTH, sc.DIST)) if fields & f]
+    bwd_args = (fields, centers, target, views, grads, fwd_k[k:])
+    bwd_k = sc.launch_fields_bwd(*bwd_args)
+    bwd_k2 = sc.launch_fields_bwd(*bwd_args)
+    bwd_p = sc.fields_bwd_plain(*bwd_args)
     leaf = centers.detach().clone().requires_grad_(True)
     with torch.enable_grad():
-        depth, dist = sc.fused_primal_plain(leaf, target, radii, size, views)
-        ((depth * g_depth).sum() + (dist * g_dist).sum()).backward()
+        planes = sc.fields_plain(fields, leaf, target, radii, size, views)
+        sum((p * g).sum() for p, g in zip(planes, grads)).backward()
     torch.cuda.synchronize()
+    amins, weights = range(k, 3 * k, 2), range(k + 1, 3 * k, 2)
     return {
-        "fields_max_abs_err": max(float((fwd_k[i] - fwd_p[i]).abs().max()) for i in (0, 1)),
-        "primal_max_abs_err": max(float((prim_k[i] - prim_p[i]).abs().max()) for i in (0, 1)),
-        "primal_vs_fwd": max(float((prim_k[i] - fwd_k[i]).abs().max()) for i in (0, 1)),
-        "argmin_mismatch": int((fwd_k[2] != fwd_p[2]).sum() + (fwd_k[4] != fwd_p[4]).sum()),
-        "weight_ulps": max(_max_ulps(fwd_k[3], fwd_p[3]), _max_ulps(fwd_k[5], fwd_p[5])),
+        "fields_max_abs_err": max(float((fwd_k[i] - fwd_p[i]).abs().max()) for i in range(k)),
+        "primal_max_abs_err": max(float((prim_k[i] - prim_p[i]).abs().max()) for i in range(k)),
+        "primal_vs_fwd": max(float((prim_k[i] - fwd_k[i]).abs().max()) for i in range(k)),
+        "argmin_mismatch": sum(int((fwd_k[i] != fwd_p[i]).sum()) for i in amins),
+        "weight_ulps": max(_max_ulps(fwd_k[i], fwd_p[i]) for i in weights),
         "bwd_max_abs_err": float((bwd_k - bwd_p).abs().max()),
         "bwd_rel_plain": _rel(bwd_k, bwd_p),
         "bwd_rel_autograd": _rel(bwd_k, leaf.grad),
@@ -131,8 +140,17 @@ def sphere_tie_violations(stats: dict, duplicates=((0, 1), (2, 3))) -> int:
     sphere (the higher j of a tied pair) won an argmin, plus duplicate
     spheres with a nonzero gradient. The lowest-j rule makes both 0."""
     fwd, bwd = stats["kernel"]["fwd"], stats["kernel"]["bwd"]
+    k = len(fwd) // 3
     bad = 0
     for _, dup in duplicates:
-        bad += int((fwd[2] == dup).sum() + (fwd[4] == dup).sum())
+        bad += sum(int((fwd[i] == dup).sum()) for i in range(k, 3 * k, 2))
         bad += int((bwd[:, dup] != 0).any(dim=-1).sum())
     return bad
+
+
+def split_fused_planes(fused_fwd) -> dict:
+    """The six planes of the two-field forward (depth, dist, amind, wd,
+    aminm, wm) as the one-field forwards give them: {DEPTH: (depth, amind,
+    wd), DIST: (dist, aminm, wm)}."""
+    depth, dist, amind, wd, aminm, wm = fused_fwd
+    return {sc.DEPTH: (depth, amind, wd), sc.DIST: (dist, aminm, wm)}

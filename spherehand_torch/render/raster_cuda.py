@@ -1,4 +1,4 @@
-"""The two hand-written CUDA rasterizers, their pre-pass and their plain versions.
+"""The hand-written CUDA rasterizers, their pre-pass and their plain versions.
 
 Counterpart of ``spherehand_tpu/render/raster_pallas.py``. The kernels
 (``spherehand_torch/csrc/raster.cu``) compute what the TPU kernels compute,
@@ -9,6 +9,11 @@ not their block layout:
   (``w2 = 1 - w0 - w1``), depth ``1/q`` from the fused affine reciprocal-depth
   row, z-min over faces, and the fused epilogue ``mean_2x2(min(z, clamp))``
   straight into the (B, 64, 64) canvas.
+- ``raster_fast`` replaces ``_raster_kernel_fast`` (raster_pallas.py:524):
+  the same coverage and depth at any sample grid (one sample a thread; Sx
+  and Sy need not be multiples of 8), raw (B, Sy, Sx) buffer with background
+  1000, no pooling. It is the JAX ``rasterize_depth_binned(..., exact=False)``
+  without ``bilinear_grid``.
 - ``raster_exact`` replaces ``_raster_kernel_exact`` (raster_pallas.py:756):
   the reference CUDA scanline-span coverage on clamped, renormalised
   barycentrics, raw (B, Sy, Sx) buffer with background 1000.
@@ -20,8 +25,8 @@ a per-face bounding box the kernels use to skip faces tile by tile. No sort
 of faces is needed: each kernel block filters the face list itself.
 
 Beside each kernel is its plain PyTorch version: :func:`rasterize_depth`
-(``render/raster.py``) for the exact kernel and
-:func:`raster_fast_pooled_plain` for the fast one. A wrapper takes the plain
+(``render/raster.py``) for the exact kernel and :func:`raster_fast_plain`
+for both fast ones (raw, or pooled given ``pool_clamp``). A wrapper takes the plain
 version only for a CPU tensor; for a CUDA tensor it launches the kernel or
 raises. ``LAUNCHES`` counts kernel launches per kernel.
 
@@ -54,7 +59,7 @@ FREC_FAST = 9    # fields per fast-mode face record
 FREC_EXACT = 24  # fields per exact-mode face record (last one is padding)
 BOX_MARGIN = 1.0  # px added around a face's box for the fast-mode coverage
 
-LAUNCHES = {"raster_fast_pooled": 0, "raster_exact": 0}
+LAUNCHES = {"raster_fast_pooled": 0, "raster_fast": 0, "raster_exact": 0}
 
 _lib = None
 
@@ -202,18 +207,17 @@ def prepass_exact(face_vertices=None, planes=None, width: int = 640):
 # ------------------------------------------------------------ plain version
 
 
-def raster_fast_pooled_plain(
+def raster_fast_plain(
     records: torch.Tensor,
     box: torch.Tensor,
     sample_x: torch.Tensor,
     sample_y: torch.Tensor,
-    pool_clamp: float | None,
+    pool_clamp: float | None = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the fast kernel: every (face, sample) pair,
-    half-plane coverage inside the face box, depth 1/q, z-min, then
-    ``pool_2x2(min(z, pool_clamp))``: (B, Sy/2, Sx/2). ``pool_clamp=None``
-    returns the raw (B, Sy, Sx) samples instead, for the fast-vs-exact
-    contract, which is stated on raw samples."""
+    """Plain PyTorch version of both fast kernels: every (face, sample)
+    pair, half-plane coverage inside the face box, depth 1/q, z-min. Raw
+    (B, Sy, Sx), background 1000 (``raster_fast``); given ``pool_clamp``,
+    ``pool_2x2(min(z, pool_clamp))``: (B, Sy/2, Sx/2) (``raster_fast_pooled``)."""
     batch, num_faces = records.shape[:2]
     x = sample_x[None, None, None, :]
     y = sample_y[None, None, :, None]
@@ -253,9 +257,10 @@ def _library():
         path, _ = build()
         lib = ctypes.CDLL(path)
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        for name in ("shx_raster_fast_pooled", "shx_raster_exact"):
+        for name, scalar in (("shx_raster_fast_pooled", [f32]), ("shx_raster_fast", []),
+                             ("shx_raster_exact", [f32])):
             fn = getattr(lib, name)
-            fn.argtypes = [ptr] * 5 + [i32] * 4 + [f32, ptr]
+            fn.argtypes = [ptr] * 5 + [i32] * 4 + scalar + [ptr]
             fn.restype = i32
         lib.shx_error_string.argtypes = [i32]
         lib.shx_error_string.restype = ctypes.c_char_p
@@ -275,7 +280,9 @@ def _check(t: torch.Tensor, name: str, shape: tuple) -> None:
         raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
 
 
-def _launch(name: str, records, box, sample_x, sample_y, out, ints, scalar) -> torch.Tensor:
+def _launch(name: str, records, box, sample_x, sample_y, out, args) -> torch.Tensor:
+    """Launch ``shx_<name>`` with the tensors' pointers, then ``args`` (the
+    sizes and scalars of its C signature) and the current stream."""
     if box.data_ptr() % 16:
         raise ValueError("box: the kernels read it as float4 and need 16-byte alignment")
     lib = _library()
@@ -283,7 +290,7 @@ def _launch(name: str, records, box, sample_x, sample_y, out, ints, scalar) -> t
     with torch.cuda.device(records.device):
         rc = getattr(lib, f"shx_{name}")(
             records.data_ptr(), box.data_ptr(), sample_x.data_ptr(),
-            sample_y.data_ptr(), out.data_ptr(), *ints, scalar, stream,
+            sample_y.data_ptr(), out.data_ptr(), *args, stream,
         )
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: {lib.shx_error_string(rc).decode()}")
@@ -303,24 +310,37 @@ def launch_raster_fast_pooled(records, box, sample_x, sample_y, pool_clamp: floa
     out = torch.empty((batch, out_h, out_w), dtype=torch.float32, device=records.device)
     return _launch(
         "raster_fast_pooled", records, box, sample_x, sample_y, out,
-        (batch, num_faces, out_w, out_h), float(pool_clamp),
+        (batch, num_faces, out_w, out_h, float(pool_clamp)),
     )
+
+
+def _check_grid(records, box, sample_x, sample_y, fields: int) -> tuple[int, int, int, int]:
+    """Check the inputs of a one-sample-a-thread kernel; (B, F, Sx, Sy)."""
+    batch, num_faces = records.shape[:2]
+    sx_n, sy_n = sample_x.shape[0], sample_y.shape[0]
+    _check(records, "records", (batch, num_faces, fields))
+    _check(box, "box", (batch, num_faces, 4))
+    _check(sample_x, "sample_x", (sx_n,))
+    _check(sample_y, "sample_y", (sy_n,))
+    return batch, num_faces, sx_n, sy_n
+
+
+def launch_raster_fast(records, box, sample_x, sample_y):
+    """Run the raw fast kernel: (B, F, 9) records + (B, F, 4) boxes at the
+    sample grid (Sx,) x (Sy,) -> raw (B, Sy, Sx), background 1000."""
+    batch, num_faces, sx_n, sy_n = _check_grid(records, box, sample_x, sample_y, FREC_FAST)
+    out = torch.empty((batch, sy_n, sx_n), dtype=torch.float32, device=records.device)
+    return _launch("raster_fast", records, box, sample_x, sample_y, out,
+                   (batch, num_faces, sx_n, sy_n))
 
 
 def launch_raster_exact(records, box, sample_x, sample_y, height: int):
     """Run the exact kernel: (B, F, 24) records + (B, F, 4) boxes at the
     sample grid (Sx,) x (Sy,) -> raw (B, Sy, Sx), background 1000."""
-    batch, num_faces = records.shape[:2]
-    sx_n, sy_n = sample_x.shape[0], sample_y.shape[0]
-    _check(records, "records", (batch, num_faces, FREC_EXACT))
-    _check(box, "box", (batch, num_faces, 4))
-    _check(sample_x, "sample_x", (sx_n,))
-    _check(sample_y, "sample_y", (sy_n,))
+    batch, num_faces, sx_n, sy_n = _check_grid(records, box, sample_x, sample_y, FREC_EXACT)
     out = torch.empty((batch, sy_n, sx_n), dtype=torch.float32, device=records.device)
-    return _launch(
-        "raster_exact", records, box, sample_x, sample_y, out,
-        (batch, num_faces, sx_n, sy_n), float(height),
-    )
+    return _launch("raster_exact", records, box, sample_x, sample_y, out,
+                   (batch, num_faces, sx_n, sy_n, float(height)))
 
 
 def _device(face_vertices, planes) -> torch.device:
@@ -339,8 +359,24 @@ def rasterize_fast_pooled(
     planes. CPU tensors take the plain version; CUDA tensors the kernel."""
     records, box = prepass_fast(face_vertices, planes)
     if _device(face_vertices, planes).type == "cpu":
-        return raster_fast_pooled_plain(records, box, sample_x, sample_y, pool_clamp)
+        return raster_fast_plain(records, box, sample_x, sample_y, pool_clamp)
     return launch_raster_fast_pooled(records, box, sample_x, sample_y, pool_clamp)
+
+
+def rasterize_fast(
+    sample_x: torch.Tensor,
+    sample_y: torch.Tensor,
+    face_vertices: torch.Tensor | None = None,
+    planes: tuple | None = None,
+) -> torch.Tensor:
+    """Fast-mode z-buffer at any sample grid: raw (B, Sy, Sx), background
+    1000 (JAX ``rasterize_depth_binned(..., exact=False)`` without
+    ``bilinear_grid``). CPU tensors take the plain version; CUDA tensors the
+    kernel."""
+    records, box = prepass_fast(face_vertices, planes)
+    if _device(face_vertices, planes).type == "cpu":
+        return raster_fast_plain(records, box, sample_x, sample_y)
+    return launch_raster_fast(records, box, sample_x, sample_y)
 
 
 def rasterize_exact(

@@ -1,4 +1,4 @@
-"""The CUDA rasterizers against their plain versions, on the card.
+"""The CUDA rasterizers and sphere kernels against their plain versions, on the card.
 
 Every test here needs an NVIDIA GPU and nvcc and skips without them. The
 file imports neither JAX nor the JAX package, so on a machine without JAX it
@@ -52,7 +52,8 @@ def _face_vertices(planes):
 
 
 def _check_pair(fv, s, size):
-    """Both kernels against their plain versions on one geometry."""
+    """The three raster kernels against their plain versions on one
+    geometry; the raw fast kernel with identical coverage."""
     records, box = raster_cuda.prepass_exact(fv, width=size)
     kernel = raster_cuda.launch_raster_exact(records, box, s, s, size)
     plain = rasterize_depth(fv, s, s, size, size)
@@ -60,8 +61,13 @@ def _check_pair(fv, s, size):
     assert contracts.exact_ok(stats), stats
     records, box = raster_cuda.prepass_fast(fv)
     kernel = raster_cuda.launch_raster_fast_pooled(records, box, s, s, 100.0)
-    plain = raster_cuda.raster_fast_pooled_plain(records, box, s, s, 100.0)
+    plain = raster_cuda.raster_fast_plain(records, box, s, s, 100.0)
     torch.cuda.synchronize()
+    assert float((kernel - plain).abs().max()) <= 1e-3
+    kernel = raster_cuda.launch_raster_fast(records, box, s, s)
+    plain = raster_cuda.raster_fast_plain(records, box, s, s)
+    torch.cuda.synchronize()
+    assert torch.equal(kernel < 999, plain < 999)
     assert float((kernel - plain).abs().max()) <= 1e-3
 
 
@@ -86,7 +92,7 @@ def test_render_counts_launches(hand_planes):
     raster_cuda.reset_launch_counts()
     fast = synthesize(model, torch.Generator(device="cuda").manual_seed(2), poses)
     exact = synthesize(model, torch.Generator(device="cuda").manual_seed(2), poses, exact=True)
-    assert raster_cuda.LAUNCHES == {"raster_fast_pooled": 1, "raster_exact": 1}
+    assert raster_cuda.LAUNCHES == {"raster_fast_pooled": 1, "raster_fast": 0, "raster_exact": 1}
     stats = contracts.fast_stats(fast.dms * 100.0, exact.dms * 100.0)
     assert np.isfinite(stats["pooled_median"])
     tr = forward_kinematics(model, poses)
@@ -137,8 +143,8 @@ def test_sphere_op_counts_launches(cuda):
     (depth.sum() + dist.sum()).backward()
     with torch.no_grad():
         sphere_cuda.sphere_min_depth_and_d2m(centers, target, radii, 64, views)
-    assert sphere_cuda.LAUNCHES == {
-        "sphere_fused_primal": 1, "sphere_fused_fwd": 1, "sphere_fused_bwd": 1}
+    fused = ("sphere_fused_primal", "sphere_fused_fwd", "sphere_fused_bwd")
+    assert sphere_cuda.LAUNCHES == {k: int(k in fused) for k in sphere_cuda.LAUNCHES}
     assert leaf.grad.shape == centers.shape and torch.isfinite(leaf.grad).all()
 
 
@@ -163,5 +169,78 @@ def test_train_steps_on_card(cuda):
     for metrics in (synt_metrics, comb_metrics, eval_metrics):
         assert all(bool(torch.isfinite(v)) for v in metrics.values()), metrics
     assert denoised.shape == (2, 41, 3)
-    assert all(n >= 1 for n in raster_cuda.LAUNCHES.values()), raster_cuda.LAUNCHES
-    assert all(n >= 1 for n in sphere_cuda.LAUNCHES.values()), sphere_cuda.LAUNCHES
+    assert all(raster_cuda.LAUNCHES[k] >= 1 for k in ("raster_fast_pooled", "raster_exact")), \
+        raster_cuda.LAUNCHES
+    assert all(sphere_cuda.LAUNCHES[f"sphere_fused_{k}"] >= 1 for k in ("primal", "fwd", "bwd")), \
+        sphere_cuda.LAUNCHES
+
+
+def test_raster_fast_on_a_non_uniform_grid(hand_planes):
+    """Sample counts that are no multiple of 8, unevenly spaced."""
+    _, planes = hand_planes
+    fv = _face_vertices(planes)
+    sx = torch.sort(torch.rand(100, generator=torch.Generator(device="cuda").manual_seed(4),
+                               device="cuda") * 640.0).values
+    sy = (torch.linspace(0.0, 1.0, 77, device="cuda") ** 2) * 639.0
+    records, box = raster_cuda.prepass_fast(fv)
+    kernel = raster_cuda.launch_raster_fast(records, box, sx, sy)
+    plain = raster_cuda.raster_fast_plain(records, box, sx, sy)
+    torch.cuda.synchronize()
+    assert kernel.shape == (8, 77, 100)
+    assert torch.equal(kernel < 999, plain < 999)
+    assert float((kernel - plain).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("case", ["random_225", "adversarial"])
+@pytest.mark.parametrize("field", ["depth", "distance"])
+def test_per_field_sphere_kernels_match_plain_and_fused(cuda, case, field):
+    """The one-field kernels against their plain versions (the phase 6
+    contract) and their planes equal to the fused kernel's bit for bit."""
+    from spherehand_torch.render import sphere_cuda as sc
+
+    centers, target, radii, views = _sphere_inputs(case, cuda)
+    fields = sc.DEPTH if field == "depth" else sc.DIST
+    stats = contracts.sphere_kernel_stats(centers, target, radii, 64, views,
+                                          torch.Generator(device=cuda).manual_seed(0), fields)
+    if case == "adversarial":
+        assert contracts.sphere_tie_violations(stats) == 0
+    fused = contracts.split_fused_planes(
+        sc.launch_fields(sc.BOTH, centers, target, radii, 64, views, residuals=True))
+    for ours, ref in zip(stats.pop("kernel")["fwd"], fused[fields]):
+        assert torch.equal(ours, ref)
+    assert contracts.sphere_ok(stats), stats
+
+
+def test_per_field_ops_launch_their_kernels(cuda):
+    """sphere_min_depth, d2m_nearest, data_to_model_distance,
+    mutual_projection and rasterize_fast on CUDA tensors launch kernels:
+    forward + backward under autograd, the primal kernel without it."""
+    from spherehand_torch.losses.multiview import mutual_projection
+    from spherehand_torch.render import sphere_cuda as sc
+    from spherehand_torch.render.sphere import data_to_model_distance
+
+    centers, target, radii, _ = _sphere_inputs("random_225", cuda)
+    z = target[:25].repeat(9, 1, 1)
+    sc.reset_launch_counts()
+    leaf = centers.clone().requires_grad_(True)
+    (sc.sphere_min_depth(leaf, radii, 64).sum() + sc.d2m_nearest(z, leaf, radii, 64).sum()).backward()
+    with torch.no_grad():
+        sc.sphere_min_depth(centers, radii, 64)
+        sc.d2m_nearest(z, centers, radii, 64)
+    per_field = {f"{p}_{k}" for p in ("min_depth", "d2m") for k in ("primal", "fwd", "bwd")}
+    assert sc.LAUNCHES == {k: int(k in per_field) for k in sc.LAUNCHES}
+    sc.reset_launch_counts()
+    poses = torch.eye(4, device=cuda).expand(2, 3, 4, 4)
+    joints = centers[:6].reshape(2, 3, 41, 3).clone().requires_grad_(True)
+    dms, projected = mutual_projection(poses, poses, joints, radii, 64)
+    (dms.sum() + data_to_model_distance(target[:6].reshape(2, 3, 64, 64), joints, radii)).backward()
+    assert dms.shape == (2, 3, 3, 64, 64) and projected.shape == (2, 3, 3, 41, 3)
+    assert {k: v for k, v in sc.LAUNCHES.items() if v} == {
+        "min_depth_fwd": 1, "min_depth_bwd": 1, "d2m_fwd": 1, "d2m_bwd": 1}
+    with pytest.raises(ValueError, match="S\\*S"):
+        data_to_model_distance(torch.full((1, 80, 80), 100.0, device=cuda), centers[:1], radii)
+    raster_cuda.reset_launch_counts()
+    s = torch.as_tensor(bilinear_sample_positions(64, 10), device=cuda)
+    faces = torch.as_tensor(CASES[0][1], device=cuda)
+    assert raster_cuda.rasterize_fast(s, s, face_vertices=faces).shape == (1, 128, 128)
+    assert raster_cuda.LAUNCHES["raster_fast"] == 1

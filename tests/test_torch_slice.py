@@ -62,7 +62,7 @@ def batches(hand_model):
     port = load_hand_model(device="cpu")
     raster_cuda.reset_launch_counts()
     ours = synthesize_from_draws(port, torch.from_numpy(poses), _jax_synthesis_draws(key, B))
-    assert raster_cuda.LAUNCHES == {"raster_fast_pooled": 0, "raster_exact": 0}
+    assert raster_cuda.LAUNCHES == {"raster_fast_pooled": 0, "raster_fast": 0, "raster_exact": 0}
     return ref, ours
 
 
