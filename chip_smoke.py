@@ -6,17 +6,19 @@ Phases, each fatal on failure:
   2. build the CUDA rasterizers and sphere kernels from spherehand_torch/csrc
      with nvcc, one process per source, started together;
   3. each kernel against its plain PyTorch version on the card: full mesh at
-     B = 8 sampler poses plus the adversarial face sets; fast against exact
-     by the fast-mode contract (phase 5 repeats the kernel checks at the
-     main path's B = 128);
+     B = 8 sampler poses plus the adversarial face sets; the two z-tile
+     kernels (read from the projected planes) a second time and on the
+     reversed face order, bit for bit; fast against exact by the fast-mode
+     contract (phase 5 repeats the kernel checks at the main path's B = 128);
   4. the main path: B = 128 sampler poses -> synthesize(add_noise=True), in
      the fast (default) and the exact raster mode -> PoseEstimator with the
      shipped weights (precision "highest") -> mean joint error under 25 mm,
      the same crops served on the CPU agree within 1e-2 mm, and both
      kernels' launch counters were raised by that run;
   5. CUDA-event timings (median of 20 calls after warm-up) at B = 128 and
-     1024: render_depth_64 fast and exact, each kernel alone, each plain
-     version, and PoseEstimator.predict at B = 128;
+     1024: render_depth_64 fast and exact, each kernel alone (from the
+     planes), each plain version (pre-pass included), and
+     PoseEstimator.predict at B = 128;
   6. the three sphere kernels against their plain versions on the card at
      N = 225 (the projected sphere centres of a rendered 25-hand, 3-view
      batch against its depth maps) and on an adversarial set (exact ties,
@@ -82,18 +84,27 @@ PARAMS = os.path.join(ROOT, "assets", "pretrained", "synthetic_params.npz")
 # outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# Float32 words a face the exact rule needs: the record's 24 fields less the
-# padding field 23 (the kernel reads xlo/xhi from the box's x range instead
-# of fields 2 and 5, so they are counted once). The box's y range only
-# speeds the skip and is not counted.
-EXACT_FIELDS_NEEDED = 23
-# Operations one face-sample test costs, counted from the kernel source
-# (csrc/raster.cu): fast = box test 4 + w0, w1, q 4 each + w2 2 + 3 compares
-# + reciprocal + min; exact = box/span tests 4 + edges 7 + span bounds 6 +
-# 3 barycentrics 4 each + clamps 6 + w_sum 2 + 1/z sum 5 + divisions 2 +
-# isnan, w_sum test, min 3.
+# The z-tile kernels (raster_fast_pooled, raster_exact) read the projected
+# planes, 9 floats a face (u, v, z of three vertices), and no records: their
+# bound counts the planes, the two sample vectors and the canvas written
+# once. Operations, counted from csrc/raster.cu: a face's setup once
+# (sort_face 35, face_box, barycentric_rows 27, the record and the binary
+# searches of its box: fast 140, exact 120), each face-sample test (fast: the
+# item's lookup over the drain's prefix sum 27 and its row and column 4, w0,
+# w1, q 4 each + w2 2 + 3 compares + reciprocal + NaN test + key 2 + atomic
+# min 22 = 53; exact: 3 barycentrics 2 each + clamps 6 + w_sum 2 + 1/z sum 5
+# + divisions 2 + w_sum and NaN tests 2 + key 2 + atomic min = 26) and, in
+# exact mode, each face-column (its lookup 27, edges 8, span bounds 7,
+# column parts 6, two binary searches over 64 rows 36 = 84). The scan's
+# repeated setup per tile is the design's cost, not the function's, and is
+# not counted.
+PLANE_FLOATS_PER_FACE = 9
+ZTILE_FAST_OPS = {"face": 140, "test": 53}
+ZTILE_EXACT_OPS = {"face": 120, "test": 26, "column": 84}
+# raster_fast reads the pre-pass records (9 floats) and boxes (4); one
+# face-sample test = box test 4 + w0, w1, q 4 each + w2 2 + 3 compares +
+# reciprocal + min.
 FAST_OPS_PER_TEST = 22
-EXACT_OPS_PER_TEST = 47
 MAIN_BATCH = 128
 BATCHES = (MAIN_BATCH, 1024)
 REPS = 20
@@ -182,15 +193,34 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return times[len(times) // 2]
 
 
-def face_sample_tests(box, sample_x, sample_y) -> int:
-    """Face-sample pairs a binned render must test: for every kept face, the
-    samples inside its box."""
+def box_samples(box, sample_x, sample_y) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per kept face, the sample columns and rows inside its box."""
     sx, sy = sample_x.contiguous(), sample_y.contiguous()
     nx = (torch.searchsorted(sx, box[..., 1].contiguous(), right=True)
           - torch.searchsorted(sx, box[..., 0].contiguous(), right=False)).clamp(min=0)
     ny = (torch.searchsorted(sy, box[..., 3].contiguous(), right=True)
           - torch.searchsorted(sy, box[..., 2].contiguous(), right=False)).clamp(min=0)
+    return nx, ny
+
+
+def face_sample_tests(box, sample_x, sample_y) -> int:
+    """Face-sample pairs a binned render must test: for every kept face, the
+    samples inside its box."""
+    nx, ny = box_samples(box, sample_x, sample_y)
     return int((nx * ny).sum())
+
+
+def ztile_bound(box, sample_x, sample_y, out_numel: int, ops: dict) -> tuple:
+    """Bound of a z-tile kernel on one geometry: the planes, both sample
+    vectors and the canvas once; its face setups, face-sample tests and
+    (exact) face-columns, from the plain pre-pass's boxes."""
+    batch, num_faces = box.shape[:2]
+    nx, ny = box_samples(box, sample_x, sample_y)
+    count = {"face": batch * num_faces, "test": int((nx * ny).sum()),
+             "column": int((nx * (ny > 0)).sum())}
+    bytes_moved = 4 * (PLANE_FLOATS_PER_FACE * batch * num_faces + sample_x.numel()
+                       + sample_y.numel() + out_numel)
+    return bound(bytes_moved, sum(n * count[k] for k, n in ops.items())), count
 
 
 def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
@@ -322,22 +352,41 @@ def main() -> int:
         u, v, z = planes
         return torch.stack([u, v, z], dim=-1).reshape(u.shape[0], -1, 3, 3)
 
+    def reversed_faces(planes):
+        batch = planes[0].shape[0]
+        return tuple(p.reshape(batch, -1, 3).flip(1).reshape(batch, -1).contiguous()
+                     for p in planes)
+
+    def same_bits(a, b) -> bool:
+        return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
     def compare(fv, s, size, tag):
-        """Both kernels vs their plain versions on one geometry; returns the
-        kernels' max |diff| to the plain versions."""
-        rec_e, box_e = raster_cuda.prepass_exact(fv, width=size)
-        k_exact = raster_cuda.launch_raster_exact(rec_e, box_e, s, s, size)
+        """Both z-tile kernels, from the planes, vs their plain versions on
+        one geometry, then again and on the reversed face order, bit for
+        bit; returns the kernels' max |diff| to the plain versions."""
+        planes = raster_cuda.planes_of(fv)
+        launches = {
+            "exact": lambda p: raster_cuda.launch_raster_exact(p, s, s, size, size),
+            "fast": lambda p: raster_cuda.launch_raster_fast_pooled(p, s, s, 100.0),
+        }
+        k_exact = launches["exact"](planes)
         p_exact = rasterize_depth(fv, s, s, size, size)
         st = contracts.exact_stats(k_exact, p_exact)
         if not (contracts.exact_ok(st) and st["max_abs_err"] <= EXACT_MAX_ERR):
             fail(f"{tag}: exact kernel vs plain exact {st}")
         rec_f, box_f = raster_cuda.prepass_fast(fv)
-        k_fast = raster_cuda.launch_raster_fast_pooled(rec_f, box_f, s, s, 100.0)
+        k_fast = launches["fast"](planes)
         p_fast = raster_cuda.raster_fast_plain(rec_f, box_f, s, s, 100.0)
         torch.cuda.synchronize()
         fast_err = float((k_fast - p_fast).abs().max())
         if not fast_err <= FAST_MAX_ERR:
             fail(f"{tag}: fast kernel vs plain fast max |diff| {fast_err}")
+        for mode, first in (("exact", k_exact), ("fast", k_fast)):
+            again, flipped = launches[mode](planes), launches[mode](reversed_faces(planes))
+            torch.cuda.synchronize()
+            if not (same_bits(first, again) and same_bits(first, flipped)):
+                fail(f"{tag}: {mode} kernel not bit-identical across launches "
+                     f"({same_bits(first, again)}) or face orders ({same_bits(first, flipped)})")
         return st["max_abs_err"], fast_err, k_fast, p_exact, rec_f, box_f
 
     # ---------------------------------------------------------------- 3
@@ -350,6 +399,7 @@ def main() -> int:
     if not contracts.fast_ok(fst):
         fail(f"fast kernel vs plain exact: {fst}")
     log(f"[3] hand B=8: exact |diff| max {e_err:.3g}, fast |diff| max {f_err:.3g}, "
+        f"both identical across two launches and the reversed face order, "
         f"fast vs exact {json.dumps(fst)}")
     for name, faces, size in adversarial_cases():
         s = samples if size == 640 else torch.arange(size, dtype=torch.float32, device=dev)
@@ -399,18 +449,19 @@ def main() -> int:
     for batch in BATCHES:
         tr, rand_f, planes = hand_planes(batch, args.seed + 3)
         fv = face_vertices(planes)
-        rec_f, box_f = raster_cuda.prepass_fast(planes=planes)
-        rec_e, box_e = raster_cuda.prepass_exact(planes=planes)
+        _, box_f = raster_cuda.prepass_fast(planes=planes)
+        _, box_e = raster_cuda.prepass_exact(planes=planes)
         t = {
             "render_fast_ms": time_ms(lambda: render_depth_64(model, tr, rand_f), REPS),
             "render_exact_ms": time_ms(
                 lambda: render_depth_64(model, tr, rand_f, exact=True), REPS),
             "raster_fast_pooled_ms": time_ms(lambda: raster_cuda.launch_raster_fast_pooled(
-                rec_f, box_f, samples, samples, 100.0), REPS),
+                planes, samples, samples, 100.0), REPS),
             "raster_exact_ms": time_ms(lambda: raster_cuda.launch_raster_exact(
-                rec_e, box_e, samples, samples, 640), REPS),
+                planes, samples, samples, 640, 640), REPS),
             "plain_fast_ms": time_ms(lambda: raster_cuda.raster_fast_plain(
-                rec_f, box_f, samples, samples, 100.0), REPS, warmup=1),
+                *raster_cuda.prepass_fast(planes=planes), samples, samples, 100.0),
+                REPS, warmup=1),
             "plain_exact_ms": time_ms(
                 lambda: rasterize_depth(fv, samples, samples), REPS, warmup=1),
             "prepass_fast_ms": time_ms(
@@ -421,19 +472,13 @@ def main() -> int:
         if batch == MAIN_BATCH:
             dms_mm = dms_fast
             t["predict_ms"] = time_ms(lambda: estimator.predict(dms_mm), REPS)
-        # bounds: the inputs the function needs read once, the canvas written
-        # once; operations = face-sample tests of a binned render x ops per
-        # test. The fast box is part of fast-mode coverage; the exact box is
-        # only a skip, so exact counts the needed record fields alone.
+        # bounds: the planes, samples and canvas once; operations from the
+        # face setups, face-sample tests and face-columns these hands need
         n = samples.numel()
-        num_faces = rec_e.shape[1]
-        fast_bytes = 4 * (rec_f.numel() + box_f.numel() + 2 * n + batch * (n // 2) ** 2)
-        exact_bytes = 4 * (batch * num_faces * EXACT_FIELDS_NEEDED + 2 * n + batch * n * n)
-        fast_tests = face_sample_tests(box_f, samples, samples)
-        exact_tests = face_sample_tests(box_e, samples, samples)
-        t["raster_fast_pooled_bound"] = bound(fast_bytes, fast_tests * FAST_OPS_PER_TEST)
-        t["raster_exact_bound"] = bound(exact_bytes, exact_tests * EXACT_OPS_PER_TEST)
-        t["fast_tests"], t["exact_tests"] = fast_tests, exact_tests
+        t["raster_fast_pooled_bound"], t["fast_counts"] = ztile_bound(
+            box_f, samples, samples, batch * (n // 2) ** 2, ZTILE_FAST_OPS)
+        t["raster_exact_bound"], t["exact_counts"] = ztile_bound(
+            box_e, samples, samples, batch * n * n, ZTILE_EXACT_OPS)
         log(f"[5] B={batch} " + json.dumps(t))
         if batch != MAIN_BATCH:
             continue

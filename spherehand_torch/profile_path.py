@@ -15,11 +15,14 @@ its host time. For each piece it prints one JSON line, per call:
   mean (for a piece of one kernel: the mean time of its recorded launches);
 - ``idle_share``: ``1 - device_ms / host_ms``, the share of the call in which
   the card has nothing to run;
+- ``stream_syncs``: ``cudaStreamSynchronize`` calls, where the host waits
+  for the device's queue (a pageable host-to-device copy ends in one);
 - ``top``: the recorded device ops with the most time, as [name, ms, count].
 
 Pieces, at B = 128 (the main path's batch) and 1024: the geometry front end
-(``project_faces_planes``), each pre-pass, each raster kernel (the raw
-``raster_fast`` at the same 128 x 128 samples), ``render_depth_64`` fast and
+(``project_faces_planes``), each plain pre-pass, each raster kernel (the
+z-tile kernels from the planes, the raw ``raster_fast`` from the fast
+pre-pass's records, at the same 128 x 128 samples), ``render_depth_64`` fast and
 exact, ``synthesize`` (fast, with noise) and ``PoseEstimator.predict`` with
 the shipped weights. Then, at ``EngineConfig`` defaults (48 synthetic + 25 x
 3 real, from the shipped weights): each sphere kernel alone (fused, min
@@ -51,6 +54,7 @@ BATCHES = (128, 1024)
 TOP = 6
 # Prefixes of the runtime calls that each put one activity on the device.
 DEVICE_WORK_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cuMemcpy", "cudaMemset", "cuMemset")
+STREAM_SYNC_CALLS = ("cudaStreamSynchronize", "cuStreamSynchronize")
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PARAMS = os.path.join(_ROOT, "assets", "pretrained", "synthetic_params.npz")
 
@@ -78,10 +82,11 @@ def device_events(prof):
             and not getattr(e, "is_user_annotation", False)]
 
 
-def issued_activities(prof) -> int:
-    """Host-side runtime calls that each put one activity on the device."""
+def issued_activities(prof, calls=DEVICE_WORK_CALLS) -> int:
+    """Host-side runtime calls whose names start with one of ``calls``: by
+    default those that each put one activity on the device."""
     return sum(1 for e in prof.events() if e.device_type != torch.autograd.DeviceType.CUDA
-               and e.name.startswith(DEVICE_WORK_CALLS))
+               and e.name.startswith(calls))
 
 
 def host_ms(fn, calls: int) -> float:
@@ -127,6 +132,7 @@ def profile_piece(fn, calls: int = CALLS) -> dict:
         "device_ms": busy,
         "idle_share": 1.0 - busy / wall,
         "launches": issued / calls,
+        "stream_syncs": issued_activities(prof, STREAM_SYNC_CALLS) / calls,
         "recorded": recorded,
         "top": [[name[:80], ms, n / calls] for name, (ms, n) in top],
     }
@@ -175,17 +181,16 @@ def _profile_render_and_serve(model, samples, estimator) -> None:
         rand_f = draws.rand_f
         planes = project_faces_planes(model, tr, 640.0, rand_f)
         rec_f, box_f = raster_cuda.prepass_fast(planes=planes)
-        rec_e, box_e = raster_cuda.prepass_exact(planes=planes)
         dms_mm = synthesize(model, gen, poses).dms * 100.0
         pieces = {
             "planes": lambda: project_faces_planes(model, tr, 640.0, rand_f),
             "prepass_fast": lambda: raster_cuda.prepass_fast(planes=planes),
             "prepass_exact": lambda: raster_cuda.prepass_exact(planes=planes),
             "kernel_fast": lambda: raster_cuda.launch_raster_fast_pooled(
-                rec_f, box_f, samples, samples, 100.0),
+                planes, samples, samples, 100.0),
             "kernel_fast_raw": lambda: raster_cuda.launch_raster_fast(rec_f, box_f, samples, samples),
             "kernel_exact": lambda: raster_cuda.launch_raster_exact(
-                rec_e, box_e, samples, samples, 640),
+                planes, samples, samples, 640, 640),
             "render_fast": lambda: render_depth_64(model, tr, rand_f),
             "render_exact": lambda: render_depth_64(model, tr, rand_f, exact=True),
             "synthesize_fast": lambda: synthesize(model, gen, poses, add_noise=True),

@@ -27,6 +27,8 @@ evaluates the rasterizer at those 128x128 samples and averages 2x2.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -191,6 +193,15 @@ def bilinear_sample_positions(out_size: int, scale: int) -> np.ndarray:
     return np.stack([base, base + 1], axis=1).reshape(-1).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def sample_grid(out_size: int, scale: int, device: torch.device) -> torch.Tensor:
+    """:func:`bilinear_sample_positions` as a tensor on ``device``, built
+    once per (out_size, scale, device): a render copies nothing from the
+    host, so it never waits on the device's queue. Callers must not write
+    to it."""
+    return torch.as_tensor(bilinear_sample_positions(out_size, scale), device=device)
+
+
 def pool_2x2(depth: torch.Tensor) -> torch.Tensor:
     """(B, 2H, 2W) -> (B, H, W): ((t0 + t1) + (t2 + t3)) * 0.25 over each
     2x2 block, the order of the fused kernel epilogue."""
@@ -222,13 +233,11 @@ def render_depth_64(
     On a CPU tensor this is the plain exact path, whatever ``exact`` says
     (as the JAX package's ``xla`` backend). On a CUDA tensor the geometry
     enters through :func:`project_faces_planes` and the hand-written kernels
-    render it: the fast half-plane kernel with the fused clamp + pool by
-    default, the exact scanline kernel when ``exact=True``.
+    render its planes with no pre-pass: the fast half-plane kernel with the
+    fused clamp + pool by default, the exact scanline kernel when
+    ``exact=True``.
     """
-    scale = _C.raster_size // out_size
-    samples = torch.as_tensor(
-        bilinear_sample_positions(out_size, scale), device=transforms.device
-    )
+    samples = sample_grid(out_size, _C.raster_size // out_size, transforms.device)
     clamp = float(_C.background_depth)
     if transforms.device.type == "cpu":
         face_verts = _assemble_face_verts(model, transforms, rand_f)

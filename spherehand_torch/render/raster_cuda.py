@@ -18,15 +18,26 @@ not their block layout:
   the reference CUDA scanline-span coverage on clamped, renormalised
   barycentrics, raw (B, Sy, Sx) buffer with background 1000.
 
-The pre-pass runs in plain PyTorch on the device: sort each face's vertices
-by x with the reference tie ladder, cull back-facing and degenerate faces,
-and build the records in the JAX field layouts (fast 9 fields, exact 24) plus
-a per-face bounding box the kernels use to skip faces tile by tile. No sort
-of faces is needed: each kernel block filters the face list itself.
+``raster_fast_pooled`` and ``raster_exact`` read the projected planes
+(u, v, z), each (B, 3F) in face-vertex order (``skinning.project_faces_planes``),
+and set every face up inside the kernel: no PyTorch op runs before them. Each
+block owns a 64 x 64 z-tile of samples in shared memory; the faces that reach
+it go to its threads, which fold covered depths into the tile with an atomic
+min on an order-preserving integer key (:func:`depth_key` is its plain
+mirror), so the result does not depend on face order or scheduling. The
+sample grids must be sorted ascending.
+
+The plain pre-pass (:func:`prepass_fast`, :func:`prepass_exact`) sorts each
+face's vertices by x with the reference tie ladder, culls back-facing and
+degenerate faces, and builds the records in the JAX field layouts (fast 9
+fields, exact 24) plus a per-face bounding box. It is the front end of the
+plain fast version and the input of ``raster_fast``, which filters the face
+list block by block (no sort of faces is needed).
 
 Beside each kernel is its plain PyTorch version: :func:`rasterize_depth`
 (``render/raster.py``) for the exact kernel and :func:`raster_fast_plain`
-for both fast ones (raw, or pooled given ``pool_clamp``). A wrapper takes the plain
+on :func:`prepass_fast`'s records for both fast ones (raw, or pooled given
+``pool_clamp``). A wrapper takes the plain
 version only for a CPU tensor; for a CUDA tensor it launches the kernel or
 raises. ``LAUNCHES`` counts kernel launches per kernel.
 
@@ -56,8 +67,9 @@ from spherehand_torch.render.raster import (
 )
 
 FREC_FAST = 9    # fields per fast-mode face record
-FREC_EXACT = 24  # fields per exact-mode face record (last one is padding)
-BOX_MARGIN = 1.0  # px added around a face's box for the fast-mode coverage
+# px added around a face's box for the fast-mode coverage (kBoxMargin in
+# csrc/raster.cu)
+BOX_MARGIN = 1.0
 
 LAUNCHES = {"raster_fast_pooled": 0, "raster_fast": 0, "raster_exact": 0}
 
@@ -242,6 +254,26 @@ def raster_fast_plain(
     return pool_2x2(torch.clamp(zbuf, max=pool_clamp))
 
 
+# ------------------------------------------------------------- depth key
+
+
+def depth_key(depth: torch.Tensor) -> torch.Tensor:
+    """Plain mirror of the kernels' order-preserving depth key: float32 ->
+    the unsigned 32-bit key, held in int64. For every value but NaN, a < b
+    iff key(a) < key(b), so the kernels take a z-min as an integer atomic
+    min on keys. Sign bit set -> ``~bits``, else ``bits | 0x80000000``;
+    -0 keys below +0."""
+    bits = depth.to(torch.float32).contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(bits >= 0x80000000, bits ^ 0xFFFFFFFF, bits | 0x80000000)
+
+
+def key_depth(key: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`depth_key`: int64 keys -> float32 depths."""
+    bits = torch.where(key >= 0x80000000, key & 0x7FFFFFFF, key ^ 0xFFFFFFFF)
+    bits = torch.where(bits >= 0x80000000, bits - (1 << 32), bits)  # as int32
+    return bits.to(torch.int32).view(torch.float32)
+
+
 # ------------------------------------------------------------------- build
 
 
@@ -257,10 +289,13 @@ def _library():
         path, _ = build()
         lib = ctypes.CDLL(path)
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        for name, scalar in (("shx_raster_fast_pooled", [f32]), ("shx_raster_fast", []),
-                             ("shx_raster_exact", [f32])):
+        for name, pointers, scalars in (
+            ("shx_raster_fast_pooled", 6, [f32]),
+            ("shx_raster_fast", 5, []),
+            ("shx_raster_exact", 6, [f32, f32]),
+        ):
             fn = getattr(lib, name)
-            fn.argtypes = [ptr] * 5 + [i32] * 4 + scalar + [ptr]
+            fn.argtypes = [ptr] * pointers + [i32] * 4 + scalars + [ptr]
             fn.restype = i32
         lib.shx_error_string.argtypes = [i32]
         lib.shx_error_string.restype = ctypes.c_char_p
@@ -280,17 +315,15 @@ def _check(t: torch.Tensor, name: str, shape: tuple) -> None:
         raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
 
 
-def _launch(name: str, records, box, sample_x, sample_y, out, args) -> torch.Tensor:
-    """Launch ``shx_<name>`` with the tensors' pointers, then ``args`` (the
-    sizes and scalars of its C signature) and the current stream."""
-    if box.data_ptr() % 16:
-        raise ValueError("box: the kernels read it as float4 and need 16-byte alignment")
+def _launch(name: str, tensors, out: torch.Tensor, args) -> torch.Tensor:
+    """Launch ``shx_<name>`` with the pointers of ``tensors`` and ``out``,
+    then ``args`` (the sizes and scalars of its C signature) and the current
+    stream."""
     lib = _library()
-    stream = torch.cuda.current_stream(records.device).cuda_stream
-    with torch.cuda.device(records.device):
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    with torch.cuda.device(out.device):
         rc = getattr(lib, f"shx_{name}")(
-            records.data_ptr(), box.data_ptr(), sample_x.data_ptr(),
-            sample_y.data_ptr(), out.data_ptr(), *args, stream,
+            *(t.data_ptr() for t in tensors), out.data_ptr(), *args, stream,
         )
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: {lib.shx_error_string(rc).decode()}")
@@ -298,49 +331,62 @@ def _launch(name: str, records, box, sample_x, sample_y, out, args) -> torch.Ten
     return out
 
 
-def launch_raster_fast_pooled(records, box, sample_x, sample_y, pool_clamp: float):
-    """Run the fast kernel: (B, F, 9) records + (B, F, 4) boxes at the
-    paired sample grid (2W,) x (2H,) -> pooled (B, H, W)."""
-    batch, num_faces = records.shape[:2]
+def _check_planes(planes) -> tuple[int, int]:
+    """Check (u, v, z) planes, each (B, 3F); returns (B, F)."""
+    batch, width = planes[0].shape
+    if width % 3:
+        raise ValueError(f"planes: expected (B, 3F), got {tuple(planes[0].shape)}")
+    for name, t in zip("uvz", planes):
+        _check(t, name, (batch, width))
+    return batch, width // 3
+
+
+def planes_of(face_vertices: torch.Tensor) -> tuple:
+    """(B, F, 3, 3) face vertices -> contiguous (u, v, z) planes, each
+    (B, 3F) in face-vertex order."""
+    batch = face_vertices.shape[0]
+    return tuple(face_vertices[..., c].reshape(batch, -1).contiguous() for c in range(3))
+
+
+def launch_raster_fast_pooled(planes, sample_x, sample_y, pool_clamp: float):
+    """Run the fast kernel: (u, v, z) planes, each (B, 3F), at the paired
+    sample grid (2W,) x (2H,), sorted ascending -> pooled (B, H, W)."""
+    batch, num_faces = _check_planes(planes)
     out_w, out_h = sample_x.shape[0] // 2, sample_y.shape[0] // 2
-    _check(records, "records", (batch, num_faces, FREC_FAST))
-    _check(box, "box", (batch, num_faces, 4))
     _check(sample_x, "sample_x", (2 * out_w,))
     _check(sample_y, "sample_y", (2 * out_h,))
-    out = torch.empty((batch, out_h, out_w), dtype=torch.float32, device=records.device)
-    return _launch(
-        "raster_fast_pooled", records, box, sample_x, sample_y, out,
-        (batch, num_faces, out_w, out_h, float(pool_clamp)),
-    )
-
-
-def _check_grid(records, box, sample_x, sample_y, fields: int) -> tuple[int, int, int, int]:
-    """Check the inputs of a one-sample-a-thread kernel; (B, F, Sx, Sy)."""
-    batch, num_faces = records.shape[:2]
-    sx_n, sy_n = sample_x.shape[0], sample_y.shape[0]
-    _check(records, "records", (batch, num_faces, fields))
-    _check(box, "box", (batch, num_faces, 4))
-    _check(sample_x, "sample_x", (sx_n,))
-    _check(sample_y, "sample_y", (sy_n,))
-    return batch, num_faces, sx_n, sy_n
+    out = torch.empty((batch, out_h, out_w), dtype=torch.float32, device=planes[0].device)
+    return _launch("raster_fast_pooled", (*planes, sample_x, sample_y), out,
+                   (batch, num_faces, out_w, out_h, float(pool_clamp)))
 
 
 def launch_raster_fast(records, box, sample_x, sample_y):
     """Run the raw fast kernel: (B, F, 9) records + (B, F, 4) boxes at the
     sample grid (Sx,) x (Sy,) -> raw (B, Sy, Sx), background 1000."""
-    batch, num_faces, sx_n, sy_n = _check_grid(records, box, sample_x, sample_y, FREC_FAST)
+    batch, num_faces = records.shape[:2]
+    sx_n, sy_n = sample_x.shape[0], sample_y.shape[0]
+    _check(records, "records", (batch, num_faces, FREC_FAST))
+    _check(box, "box", (batch, num_faces, 4))
+    _check(sample_x, "sample_x", (sx_n,))
+    _check(sample_y, "sample_y", (sy_n,))
+    if box.data_ptr() % 16:
+        raise ValueError("box: the kernel reads it as float4 and needs 16-byte alignment")
     out = torch.empty((batch, sy_n, sx_n), dtype=torch.float32, device=records.device)
-    return _launch("raster_fast", records, box, sample_x, sample_y, out,
+    return _launch("raster_fast", (records, box, sample_x, sample_y), out,
                    (batch, num_faces, sx_n, sy_n))
 
 
-def launch_raster_exact(records, box, sample_x, sample_y, height: int):
-    """Run the exact kernel: (B, F, 24) records + (B, F, 4) boxes at the
-    sample grid (Sx,) x (Sy,) -> raw (B, Sy, Sx), background 1000."""
-    batch, num_faces, sx_n, sy_n = _check_grid(records, box, sample_x, sample_y, FREC_EXACT)
-    out = torch.empty((batch, sy_n, sx_n), dtype=torch.float32, device=records.device)
-    return _launch("raster_exact", records, box, sample_x, sample_y, out,
-                   (batch, num_faces, sx_n, sy_n, float(height)))
+def launch_raster_exact(planes, sample_x, sample_y, width: int, height: int):
+    """Run the exact kernel: (u, v, z) planes, each (B, 3F), at the sample
+    grid (Sx,) x (Sy,), sorted ascending, on a width x height canvas -> raw
+    (B, Sy, Sx), background 1000."""
+    batch, num_faces = _check_planes(planes)
+    sx_n, sy_n = sample_x.shape[0], sample_y.shape[0]
+    _check(sample_x, "sample_x", (sx_n,))
+    _check(sample_y, "sample_y", (sy_n,))
+    out = torch.empty((batch, sy_n, sx_n), dtype=torch.float32, device=planes[0].device)
+    return _launch("raster_exact", (*planes, sample_x, sample_y), out,
+                   (batch, num_faces, sx_n, sy_n, float(width), float(height)))
 
 
 def _device(face_vertices, planes) -> torch.device:
@@ -356,11 +402,14 @@ def rasterize_fast_pooled(
 ) -> torch.Tensor:
     """Fast-mode z-buffer at the paired sample grid, clamped and 2x2-pooled:
     (B, Sy/2, Sx/2). Geometry as (B, F, 3, 3) face vertices or (u, v, z)
-    planes. CPU tensors take the plain version; CUDA tensors the kernel."""
-    records, box = prepass_fast(face_vertices, planes)
+    planes. CPU tensors take the plain version; CUDA tensors the kernel,
+    which reads the planes directly."""
     if _device(face_vertices, planes).type == "cpu":
+        records, box = prepass_fast(face_vertices, planes)
         return raster_fast_plain(records, box, sample_x, sample_y, pool_clamp)
-    return launch_raster_fast_pooled(records, box, sample_x, sample_y, pool_clamp)
+    if planes is None:
+        planes = planes_of(face_vertices)
+    return launch_raster_fast_pooled(planes, sample_x, sample_y, pool_clamp)
 
 
 def rasterize_fast(
@@ -388,11 +437,13 @@ def rasterize_exact(
     height: int = 640,
 ) -> torch.Tensor:
     """Exact-mode z-buffer: raw (B, Sy, Sx), background 1000. CPU tensors
-    take the plain :func:`rasterize_depth`; CUDA tensors the kernel."""
+    take the plain :func:`rasterize_depth`; CUDA tensors the kernel, which
+    reads the planes directly."""
     if _device(face_vertices, planes).type == "cpu":
         if face_vertices is None:
             u, v, z = planes
             face_vertices = torch.stack([u, v, z], dim=-1).reshape(u.shape[0], -1, 3, 3)
         return rasterize_depth(face_vertices, sample_x, sample_y, width, height)
-    records, box = prepass_exact(face_vertices, planes, width)
-    return launch_raster_exact(records, box, sample_x, sample_y, height)
+    if planes is None:
+        planes = planes_of(face_vertices)
+    return launch_raster_exact(planes, sample_x, sample_y, width, height)

@@ -51,16 +51,27 @@ def _face_vertices(planes):
     return torch.stack([u, v, z], dim=-1).reshape(u.shape[0], -1, 3, 3)
 
 
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def _reversed(planes):
+    """The same faces in reverse order."""
+    batch = planes[0].shape[0]
+    return tuple(p.reshape(batch, -1, 3).flip(1).reshape(batch, -1).contiguous() for p in planes)
+
+
 def _check_pair(fv, s, size):
     """The three raster kernels against their plain versions on one
-    geometry; the raw fast kernel with identical coverage."""
-    records, box = raster_cuda.prepass_exact(fv, width=size)
-    kernel = raster_cuda.launch_raster_exact(records, box, s, s, size)
+    geometry (the two z-tile kernels from planes, the raw fast kernel from
+    records); the raw fast kernel with identical coverage."""
+    planes = raster_cuda.planes_of(fv)
+    kernel = raster_cuda.launch_raster_exact(planes, s, s, size, size)
     plain = rasterize_depth(fv, s, s, size, size)
     stats = contracts.exact_stats(kernel, plain)
     assert contracts.exact_ok(stats), stats
     records, box = raster_cuda.prepass_fast(fv)
-    kernel = raster_cuda.launch_raster_fast_pooled(records, box, s, s, 100.0)
+    kernel = raster_cuda.launch_raster_fast_pooled(planes, s, s, 100.0)
     plain = raster_cuda.raster_fast_plain(records, box, s, s, 100.0)
     torch.cuda.synchronize()
     assert float((kernel - plain).abs().max()) <= 1e-3
@@ -83,6 +94,37 @@ def test_kernels_match_plain_adversarial(cuda, case):
     s = (torch.as_tensor(bilinear_sample_positions(64, 10), device=cuda) if size == 640
          else torch.arange(size, dtype=torch.float32, device=cuda))
     _check_pair(torch.as_tensor(faces, device=cuda), s, size)
+
+
+@pytest.mark.parametrize("kernel", ["raster_fast_pooled", "raster_exact"])
+def test_ztile_kernels_are_order_free(hand_planes, kernel):
+    """Two launches give the same bits, so does the reversed face order
+    (the z-tile takes an atomic min on order-preserving keys), and one face
+    covering the whole canvas (offscreen_tiny_giant) equals the plain
+    version."""
+    _, planes = hand_planes
+    s = torch.as_tensor(bilinear_sample_positions(64, 10), device="cuda")
+
+    def launch(p):
+        if kernel == "raster_exact":
+            return raster_cuda.launch_raster_exact(p, s, s, 640, 640)
+        return raster_cuda.launch_raster_fast_pooled(p, s, s, 100.0)
+
+    first, again, flipped = launch(planes), launch(planes), launch(_reversed(planes))
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(first), _bits(again))
+    assert torch.equal(_bits(first), _bits(flipped))
+    name, faces, size = CASES[0]
+    assert name == "offscreen_tiny_giant" and size == 640
+    fv = torch.as_tensor(faces, device="cuda")
+    giant = launch(raster_cuda.planes_of(fv))
+    if kernel == "raster_exact":
+        plain = rasterize_depth(fv, s, s)
+    else:
+        plain = raster_cuda.raster_fast_plain(*raster_cuda.prepass_fast(fv), s, s, 100.0)
+    torch.cuda.synchronize()
+    assert (plain < 99).float().mean() > 0.3
+    assert torch.equal(_bits(giant), _bits(plain))
 
 
 def test_render_counts_launches(hand_planes):

@@ -49,6 +49,7 @@ def test_issued_activities_count_the_runtime_calls_that_issue_device_work():
              (cpu, "aten::add"), (cuda, "cudaLaunchKernel")]
     prof = NS(events=lambda: [NS(device_type=d, name=n) for d, n in names])
     assert profile_path.issued_activities(prof) == 5
+    assert profile_path.issued_activities(prof, profile_path.STREAM_SYNC_CALLS) == 1
 
 
 @pytest.mark.parametrize(
@@ -57,3 +58,30 @@ def test_issued_activities_count_the_runtime_calls_that_issue_device_work():
 )
 def test_recorded_share(recorded, issued, expected):
     assert profile_path.recorded_share(recorded, issued) == expected
+
+
+@pytest.mark.parametrize("tile, threads", [(32, 256), (64, 512), (64, 1024)])
+def test_raster_sweep_variants_replace_the_z_tile_sizes(tile, threads):
+    """The sweep's variants of csrc/raster.cu change kZTile, kZThreads and
+    kPerThread (a scan round stays 1,024 faces) and nothing else."""
+    import os
+
+    from spherehand_torch import cuda_build, raster_sweep
+
+    with open(os.path.join(cuda_build.CSRC_DIR, "raster.cu")) as fh:
+        source = fh.read()
+    assert raster_sweep.shipped_sizes(source) == (64, 512)
+    variant = raster_sweep.variant_source(source, tile, threads)
+    assert raster_sweep.shipped_sizes(variant) == (tile, threads)
+    assert f"constexpr int kPerThread = {1024 // threads};" in variant
+    changed = [a for a, b in zip(source.splitlines(), variant.splitlines()) if a != b]
+    assert len(variant.splitlines()) == len(source.splitlines())
+    assert all(ln.startswith(("constexpr int kZTile", "constexpr int kZThreads",
+                              "constexpr int kPerThread")) for ln in changed)
+
+
+def test_raster_sweep_refuses_without_cuda(monkeypatch):
+    from spherehand_torch import raster_sweep
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert raster_sweep.main() == 2

@@ -183,14 +183,14 @@ def test_cpu_wrappers_take_plain_versions_and_kernels_refuse_cpu(hand_setup):
     planes = tuple(_t(fv[:1, :, :, c].reshape(1, -1)) for c in range(3))
     np.testing.assert_array_equal(
         raster_cuda.rasterize_exact(s, s, planes=planes).numpy(), exact.numpy())
-    raster_cuda.rasterize_fast_pooled(s, s, planes=planes)
+    np.testing.assert_array_equal(
+        raster_cuda.rasterize_fast_pooled(s, s, planes=planes).numpy(),
+        raster_cuda.rasterize_fast_pooled(s, s, face_vertices=_t(fv[:1])).numpy())
     assert raster_cuda.LAUNCHES == {"raster_fast_pooled": 0, "raster_fast": 0, "raster_exact": 0}
-    records, box = raster_cuda.prepass_exact(_t(fv[:1]))
     with pytest.raises(ValueError, match="CUDA"):
-        raster_cuda.launch_raster_exact(records, box, s, s, 640)
-    records, box = raster_cuda.prepass_fast(_t(fv[:1]))
+        raster_cuda.launch_raster_exact(planes, s, s, 640, 640)
     with pytest.raises(ValueError, match="CUDA"):
-        raster_cuda.launch_raster_fast_pooled(records, box, s, s, 100.0)
+        raster_cuda.launch_raster_fast_pooled(planes, s, s, 100.0)
 
 
 def test_plain_raw_fast_matches_jax_fast_without_grid(hand_setup):
@@ -243,3 +243,61 @@ def test_rasterize_fast_takes_the_plain_version_and_its_kernel_refuses_cpu(hand_
     assert all(n == 0 for n in raster_cuda.LAUNCHES.values())
     with pytest.raises(ValueError, match="CUDA"):
         raster_cuda.launch_raster_fast(records, box, sx, sy)
+
+
+def test_planes_of_is_the_face_vertex_order(hand_setup):
+    """The kernels' planes from (B, F, 3, 3) face vertices: (u, v, z), each
+    (B, 3F), contiguous, vertex k of face f at 3f + k."""
+    _, fv = hand_setup
+    planes = raster_cuda.planes_of(_t(fv))
+    for c, plane in enumerate(planes):
+        assert plane.shape == (2, 3 * fv.shape[1]) and plane.is_contiguous()
+        np.testing.assert_array_equal(plane.numpy(), fv[..., c].reshape(2, -1))
+
+
+SPECIAL_DEPTHS = np.array(
+    [-np.inf, -3.4e38, -1000.0, -1.5, -1e-38, -1e-45, -0.0, 0.0, 1e-45, 1e-40, 1.17e-38,
+     0.5, 1.0, 99.99, 100.0, 999.9999, 1000.0, 1000.0001, 3.4e38, np.inf], np.float32)
+
+
+def test_depth_key_is_monotone_and_round_trips():
+    """The plain mirror of the kernels' depth key: strictly increasing over
+    sorted float32 values (negatives, -0 below +0, subnormals, infinities,
+    the background 1000), unsigned 32-bit, and its inverse gives back every
+    bit."""
+    rng = np.random.RandomState(5)
+    rand = np.concatenate([rng.standard_normal(2000) * 10.0 ** rng.randint(-40, 38, 2000),
+                           rng.uniform(-200, 1200, 2000)]).astype(np.float32)
+    values = np.unique(np.concatenate([SPECIAL_DEPTHS, rand[np.isfinite(rand)]]))
+    values = np.concatenate([values[values < 0], np.float32([-0.0, 0.0]), values[values > 0]])
+    keys = raster_cuda.depth_key(torch.from_numpy(values))
+    assert keys.dtype == torch.int64
+    assert int(keys.min()) >= 0 and int(keys.max()) < 1 << 32
+    assert bool((keys[1:] > keys[:-1]).all())
+    back = raster_cuda.key_depth(keys).numpy()
+    np.testing.assert_array_equal(back.view(np.int32), values.view(np.int32))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_min_of_depth_keys_is_torch_minimum(seed):
+    """A z-min taken on keys, as the kernels' atomic min does, equals
+    torch.minimum over the same float32 sets (background 1000, negatives,
+    infinities, signed zeros)."""
+    rng = np.random.RandomState(seed)
+    sets = rng.uniform(-150, 150, (64, 9)).astype(np.float32)
+    sets[rng.rand(*sets.shape) < 0.3] = 1000.0
+    sets[rng.rand(*sets.shape) < 0.05] = rng.choice(SPECIAL_DEPTHS, int((sets.size * 0.05) + 1))[0]
+    depth = torch.from_numpy(sets)
+    ref = depth[:, 0]
+    for k in range(1, depth.shape[1]):
+        ref = torch.minimum(ref, depth[:, k])
+    ours = raster_cuda.key_depth(raster_cuda.depth_key(depth).amin(dim=1))
+    assert torch.equal(ours, ref)
+
+
+def test_render_sample_grid_is_built_once_per_device():
+    """``render_depth_64``'s sample grid is cached by (out_size, scale,
+    device): no host-to-device copy per render."""
+    grid = traster.sample_grid(64, 10, torch.device("cpu"))
+    assert traster.sample_grid(64, 10, torch.device("cpu")) is grid
+    np.testing.assert_array_equal(grid.numpy(), traster.bilinear_sample_positions(64, 10))
