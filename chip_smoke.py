@@ -21,10 +21,13 @@ Phases, each fatal on failure:
      PoseEstimator.predict at B = 128;
   6. the three sphere kernels against their plain versions on the card at
      N = 225 (the projected sphere centres of a rendered 25-hand, 3-view
-     batch against its depth maps) and on an adversarial set (exact ties,
-     a sphere centred on a pixel, all-background targets): forward fields
-     and argmins identical, weights within 1 ulp, backward within 1e-5
-     relative and bit-identical across two runs, the lowest-j tie rule;
+     batch against its depth maps), on an adversarial set (exact ties,
+     a sphere centred on a pixel, all-background targets) and on the edge
+     set (discs within a pixel of a tile's edge, depth >= 100 behind an
+     uncovered sphere, observations of 99.0 and NaN, an all-foreground
+     view): forward fields and argmins identical (NaN at the same pixels),
+     weights within 1 ulp, backward within 1e-5 relative and bit-identical
+     across two runs, the lowest-j tie rule;
   7. the training path at full width (EngineConfig defaults: 48 synthetic
      + 25 x 3 real, one stack, Adam lr 1e-3): render the real batch (exact
      raster), 3 synt_steps, 3 combined_steps (is_mv True, True, False) and
@@ -36,13 +39,15 @@ Phases, each fatal on failure:
      within 1e-3 relative, per-tensor gradient norms within 5 %;
   9. CUDA-event medians: each fused sphere kernel and plain version at
      N = 225, synt_step and combined_step (draws included) and eval_step;
+     the sphere bounds count what these inputs need (covered pixel-sphere
+     pairs, foreground pixels, pixels of nonzero weight);
  10. the op-level API of the JAX package (its unfused mutual projection and
      the raw fast raster):
      (a) the six one-field sphere kernels (min depth, nearest distance:
          primal, forward, backward) against their plain versions at N = 225
          (phase 6's hands, the distance reading the gathered targets) and on
-         the adversarial set, held as in phase 6, and their field, argmin and
-         weight planes equal to the fused kernel's bit for bit;
+         the adversarial and edge sets, held as in phase 6, and their field,
+         argmin and weight planes equal to the fused kernel's bit for bit;
      (b) the per-field path at full width: the shipped estimator (TF32 off)
          on phase 7's 25 x 3 real batch -> joints -> the unfused
          mutual_projection_loss (mutual_projection + data_to_model_distance)
@@ -114,18 +119,25 @@ FAST_MAX_ERR = 1e-3
 EXACT_MAX_ERR = 1e-3
 DEVICE = "cuda"
 GRAD_PARITY = os.path.join(ROOT, "tests", "goldens", "grad_parity_ab.npz")
-# Operations per pixel-sphere update, counted from csrc/sphere.cu, by field
-# mask (1 depth, 2 distance, 3 both): depth 2 sub, 2 mul, 2 sub, compare,
-# max, sqrt, sub, select, compare = 12, plus 3 selects of the argmin update
-# (1 in the primal kernel, which keeps only the minimum); distance p.c 3 mul
-# + 2 add, 2 p.c, sub, add, max, sqrt, sub, abs, select, compare = 14, plus
-# 4 selects (1 in the primal kernel). Both fields add up.
-SPHERE_FWD_OPS = {1: 15, 2: 18, 3: 33}
-SPHERE_PRIMAL_OPS = {1: 13, 2: 15, 3: 28}
-# Backward: per pixel, depth 5 to form its four weighted terms + 4 adds into
-# its winning sphere's sums, distance 4 + 4; per (image, sphere), depth 4
-# and distance 6 to combine the sums.
-SPHERE_BWD_OPS_PIXEL = {1: 9, 2: 8, 3: 17}
+# Operations of the sphere kernels, counted from csrc/sphere.cu; built with
+# -fmad=false, so each add and multiply is one instruction (sqrt and division
+# count one each here, though IEEE sqrtf and division take several). Depth,
+# per covered (pixel, sphere) pair (sq > 1e-2; a sphere that misses the pixel
+# gives 100 without arithmetic): 2 sub, 2 mul, 2 sub, compare, max, sqrt,
+# sub, select, compare = 12, plus 3 selects of the argmin update (1 in the
+# primal kernel, which keeps only the minimum). Distance, per (foreground
+# pixel, sphere) pair (a background pixel's result is fixed): p.c 3 mul + 2
+# add, 2 p.c, sub, add, max, sqrt, sub, abs, compare = 14, plus 4 selects (1
+# in the primal kernel). Backward, per pixel whose winning weight is not 0:
+# depth 5 to form its four weighted terms + 4 adds into its sphere's sums,
+# distance 4 + 4; per (image, sphere), depth 4 and distance 6 to combine the
+# sums. Bytes: the inputs read once (the distance field's target planes
+# too), the planes written once; the backward reads its cotangent and weight
+# planes and the target at every pixel, but an argmin plane only where a
+# term of that field is nonzero (with the cotangents of ones timed here,
+# where its weight is), since the gradient needs it nowhere else.
+SPHERE_OPS = {"depth": {"fwd": 15, "primal": 13, "bwd": 9},
+              "dist": {"fwd": 18, "primal": 15, "bwd": 8}}
 SPHERE_BWD_OPS_SPHERE = {1: 4, 2: 6, 3: 10}
 # The TPU kernels each sphere kernel replaces (render/sphere_pallas.py lines).
 SPHERE_SOURCES = {3: {"primal": 227, "fwd": 253, "bwd": 308},
@@ -229,11 +241,31 @@ def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def sphere_work(sc, fields: int, centers, target, radii, size: int, views: int,
+                weights) -> dict:
+    """What these inputs need of the sphere kernels of ``fields``: covered
+    (pixel, sphere) pairs (depth), foreground pixels of the observation (not
+    z > 99) times J (distance), and pixels with a nonzero weight per field
+    (``weights`` the forward's weight planes, depth before distance)."""
+    n_img, num_j = centers.shape[:2]
+    work = {"covered_pairs": 0, "foreground_updates": 0, "live_pixels": {}}
+    if fields & sc.DEPTH:
+        for a in range(0, n_img, 25):
+            _, sq = sc._depth_fields(centers[a:a + 25], radii, size)
+            work["covered_pairs"] += int((sq > 1e-2).sum())
+    if fields & sc.DIST:
+        z = sc.gathered_target(target, n_img, views)
+        work["foreground_updates"] = int((~(z > 99.0)).sum()) * num_j
+    names = [f for f, bit in (("depth", sc.DEPTH), ("dist", sc.DIST)) if fields & bit]
+    for name, w in zip(names, weights):
+        work["live_pixels"][name] = int((w != 0).sum())
+    return work
+
+
 def sphere_timings(sc, fields: int, centers, target, radii, size: int, views: int) -> dict:
     """CUDA-event medians of the three kernels of ``fields`` and their plain
-    versions, with their bounds: the inputs read once (the distance field's
-    target planes too), the planes written once; operations from the counts
-    above."""
+    versions, with their bounds from what these inputs need
+    (:func:`sphere_work`, the counts above)."""
     prefix = sc.LAUNCH_PREFIX[fields]
     k = sc.num_fields(fields)
     args = (fields, centers, target, radii, size, views)
@@ -251,17 +283,23 @@ def sphere_timings(sc, fields: int, centers, target, radii, size: int, views: in
                                           warmup=1),
     }
     n_img, num_j = centers.shape[:2]
-    pixels = size * size
-    plane_bytes = 4 * n_img * pixels
+    work = sphere_work(sc, fields, centers, target, radii, size, views, fwd[k + 1::2])
+    t[f"{prefix}_work"] = work
+    plane_bytes = 4 * n_img * size * size
     target_bytes = 4 * target.numel() if fields & sc.DIST else 0
     in_bytes = 4 * (centers.numel() + radii.numel()) + target_bytes
-    updates = n_img * pixels * num_j
-    t[f"{prefix}_fwd_bound"] = bound(in_bytes + 3 * k * plane_bytes, updates * SPHERE_FWD_OPS[fields])
-    t[f"{prefix}_primal_bound"] = bound(in_bytes + k * plane_bytes,
-                                        updates * SPHERE_PRIMAL_OPS[fields])
+
+    def forward_ops(kind):
+        return (work["covered_pairs"] * SPHERE_OPS["depth"][kind]
+                + work["foreground_updates"] * SPHERE_OPS["dist"][kind])
+
+    t[f"{prefix}_fwd_bound"] = bound(in_bytes + 3 * k * plane_bytes, forward_ops("fwd"))
+    t[f"{prefix}_primal_bound"] = bound(in_bytes + k * plane_bytes, forward_ops("primal"))
     t[f"{prefix}_bwd_bound"] = bound(
-        8 * centers.numel() + target_bytes + 3 * k * plane_bytes,
-        n_img * pixels * SPHERE_BWD_OPS_PIXEL[fields] + n_img * num_j * SPHERE_BWD_OPS_SPHERE[fields])
+        8 * centers.numel() + target_bytes + 2 * k * plane_bytes
+        + 4 * sum(work["live_pixels"].values()),
+        sum(n * SPHERE_OPS[f]["bwd"] for f, n in work["live_pixels"].items())
+        + n_img * num_j * SPHERE_BWD_OPS_SPHERE[fields])
     return t
 
 
@@ -295,7 +333,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from spherehand_torch import cuda_build
     from spherehand_torch.convert import train_state_from_params
-    from spherehand_torch.data.pseudo_real import render_multiview_batch
+    from spherehand_torch.data.pseudo_real import render_multiview_batch, sphere_inputs
     from spherehand_torch.data.sampler import sample_poses
     from spherehand_torch.data.synthesizer import draw_synthesis, synthesize, synthesize_from_draws
     from spherehand_torch.hand.assets import load_hand_model
@@ -304,14 +342,14 @@ def main() -> int:
     from spherehand_torch.infer import PoseEstimator, float32_precision, load_params_npz
     from spherehand_torch import kernel_parity
     from spherehand_torch.constants import Constants
-    from spherehand_torch.losses.multiview import (
-        apply_rigid,
-        mutual_projection_loss,
-        mutual_transforms,
-    )
+    from spherehand_torch.losses.multiview import mutual_projection_loss
     from spherehand_torch.models.estimator import forward as estimator_forward
     from spherehand_torch.render import contracts, raster_cuda, sphere_cuda
-    from spherehand_torch.render.adversarial import adversarial_cases, sphere_adversarial_case
+    from spherehand_torch.render.adversarial import (
+        adversarial_cases,
+        sphere_adversarial_case,
+        sphere_edge_case,
+    )
     from spherehand_torch.train.config import EngineConfig
     from spherehand_torch.train.steps import RealBatch, build_steps
     from spherehand_torch.render.raster import (
@@ -357,9 +395,6 @@ def main() -> int:
         return tuple(p.reshape(batch, -1, 3).flip(1).reshape(batch, -1).contiguous()
                      for p in planes)
 
-    def same_bits(a, b) -> bool:
-        return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
-
     def compare(fv, s, size, tag):
         """Both z-tile kernels, from the planes, vs their plain versions on
         one geometry, then again and on the reversed face order, bit for
@@ -384,9 +419,10 @@ def main() -> int:
         for mode, first in (("exact", k_exact), ("fast", k_fast)):
             again, flipped = launches[mode](planes), launches[mode](reversed_faces(planes))
             torch.cuda.synchronize()
-            if not (same_bits(first, again) and same_bits(first, flipped)):
+            if not (contracts.same_bits(first, again) and contracts.same_bits(first, flipped)):
                 fail(f"{tag}: {mode} kernel not bit-identical across launches "
-                     f"({same_bits(first, again)}) or face orders ({same_bits(first, flipped)})")
+                     f"({contracts.same_bits(first, again)}) or face orders "
+                     f"({contracts.same_bits(first, flipped)})")
         return st["max_abs_err"], fast_err, k_fast, p_exact, rec_f, box_f
 
     # ---------------------------------------------------------------- 3
@@ -503,15 +539,12 @@ def main() -> int:
     size = 64
     real = render_multiview_batch(model, torch.Generator(device=dev).manual_seed(args.seed + 4),
                                   EngineConfig().real_batch)
-    num_views = real.dms.shape[1]
-    projected = apply_rigid(mutual_transforms(real.poses, real.inv_poses), real.keypoints[:, :, None])
-    sph_centers = projected.reshape(-1, model.kp_radius.shape[0], 3).contiguous()
-    sph_target = real.dms.reshape(-1, size, size).contiguous()
-    sph_radii = model.kp_radius.contiguous()
+    sph_centers, sph_target, sph_radii, num_views = sphere_inputs(model, real)
     adv = [torch.as_tensor(a, device=dev) for a in sphere_adversarial_case(views=num_views)]
+    edge = [torch.as_tensor(a, device=dev) for a in sphere_edge_case(views=num_views)]
     sphere_stats = {}
     for tag, (c, t, r) in (("hands N=%d" % sph_centers.shape[0], (sph_centers, sph_target, sph_radii)),
-                           ("adversarial", adv)):
+                           ("adversarial", adv), ("edge", edge)):
         st = contracts.sphere_kernel_stats(c, t, r, size, num_views,
                                            torch.Generator(device=dev).manual_seed(args.seed + 5))
         ties = contracts.sphere_tie_violations(st) if tag == "adversarial" else 0
@@ -617,6 +650,7 @@ def main() -> int:
                              sc.DIST: (sph_centers, gathered, sph_radii, 1),
                              sc.BOTH: (sph_centers, sph_target, sph_radii, num_views)},
         "adversarial": {f: (adv[0], adv[1], adv[2], num_views) for f in (sc.DEPTH, sc.DIST, sc.BOTH)},
+        "edge": {f: (edge[0], edge[1], edge[2], num_views) for f in (sc.DEPTH, sc.DIST, sc.BOTH)},
     }
     field_stats = {}
     for tag, by_fields in field_sets.items():
@@ -628,7 +662,8 @@ def main() -> int:
                 c, t, r, size, views, torch.Generator(device=dev).manual_seed(args.seed + 8),
                 fields)
             ties = contracts.sphere_tie_violations(st) if tag == "adversarial" else 0
-            same = all(torch.equal(a, b) for a, b in zip(st.pop("kernel")["fwd"], fused_planes[fields]))
+            same = all(contracts.same_bits(a, b)
+                       for a, b in zip(st.pop("kernel")["fwd"], fused_planes[fields]))
             name = sc.LAUNCH_PREFIX[fields]
             log(f"[10a] {name} kernels, {tag}: {json.dumps(st)}; tie violations {ties}; "
                 f"planes equal to the fused kernel's: {same}")

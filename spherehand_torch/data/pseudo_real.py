@@ -24,6 +24,7 @@ from spherehand_torch.data.sampler import sample_poses
 from spherehand_torch.hand.assets import HandModel
 from spherehand_torch.hand.kinematics import forward_kinematics
 from spherehand_torch.hand.skinning import apply_random_scale, lbs_keypoints
+from spherehand_torch.losses.multiview import apply_rigid, mutual_transforms
 from spherehand_torch.render.raster import render_depth_64
 
 
@@ -89,3 +90,15 @@ def render_multiview_batch(model: HandModel, generator: torch.Generator,
     poses[:, :, 3, 3] = 1.0
     poses[:, :, :3, :3] = torch.as_tensor(camera_rotations(), device=dev)
     return PseudoRealBatch(dms, joints, poses, torch.linalg.inv(poses), kps)
+
+
+def sphere_inputs(model: HandModel, real: PseudoRealBatch) -> tuple:
+    """The sphere fields' inputs of the combined step on ``real``: every
+    view's projected keypoints in every view's camera (N = B x V x V, J, 3),
+    the depth maps (B x V, S, S), the radii and the view count V."""
+    projected = apply_rigid(mutual_transforms(real.poses, real.inv_poses),
+                            real.keypoints[:, :, None])
+    size = real.dms.shape[-1]
+    return (projected.reshape(-1, model.kp_radius.shape[0], 3).contiguous(),
+            real.dms.reshape(-1, size, size).contiguous(), model.kp_radius.contiguous(),
+            real.dms.shape[1])

@@ -35,7 +35,7 @@ its unfused (per-field kernels) and fused form, and the train steps
 Usage: python -m spherehand_torch.profile_path
 
 Needs a CUDA device. Exits non-zero without one, or when the profiler
-records no device activity.
+records no device activity for a piece in ``TRACE_ATTEMPTS`` traces.
 """
 from __future__ import annotations
 
@@ -49,6 +49,7 @@ from collections import defaultdict
 import torch
 
 CALLS = 10
+TRACE_ATTEMPTS = 3
 SEED = 0
 BATCHES = (128, 1024)
 TOP = 6
@@ -111,12 +112,17 @@ def profile_piece(fn, calls: int = CALLS) -> dict:
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = device_events(prof)
-    if not events:
+    # The tracer now and then keeps no device activity of a whole session
+    # (the work ran: its launches are recorded); such a trace is taken again.
+    for _ in range(TRACE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        if events:
+            break
+    else:
         raise SystemExit("profile_path: the profiler recorded no device activity")
     issued = max(issued_activities(prof), len(events))
     recorded = recorded_share(len(events), issued)
@@ -203,14 +209,10 @@ def _profile_render_and_serve(model, samples, estimator) -> None:
 
 def _profile_train_steps(model) -> None:
     from spherehand_torch.convert import train_state_from_params
-    from spherehand_torch.data.pseudo_real import render_multiview_batch
+    from spherehand_torch.data.pseudo_real import render_multiview_batch, sphere_inputs
     from spherehand_torch.infer import load_params_npz
     from spherehand_torch.constants import Constants
-    from spherehand_torch.losses.multiview import (
-        apply_rigid,
-        mutual_projection_loss,
-        mutual_transforms,
-    )
+    from spherehand_torch.losses.multiview import mutual_projection_loss
     from spherehand_torch.models.estimator import forward
     from spherehand_torch.render import sphere_cuda
     from spherehand_torch.train.config import EngineConfig
@@ -225,9 +227,7 @@ def _profile_train_steps(model) -> None:
     # the sphere kernels alone at the combined step's shapes (N = 25 x 3 x 3);
     # the distance field alone reads the gathered targets, as d2m_nearest does
     sc = sphere_cuda
-    centers = apply_rigid(mutual_transforms(real.poses, real.inv_poses), real.keypoints[:, :, None])
-    centers = centers.reshape(-1, model.kp_radius.shape[0], 3).contiguous()
-    target = real.dms.reshape(-1, *real.dms.shape[2:]).contiguous()
+    centers, target, _, _ = sphere_inputs(model, real)
     size = real.dms.shape[-1]
     inputs = {sc.BOTH: (target, NUM_VIEWS), sc.DEPTH: (None, 1),
               sc.DIST: (sc.gathered_target(target, centers.shape[0], NUM_VIEWS).contiguous(), 1)}

@@ -92,3 +92,68 @@ def sphere_adversarial_case(views: int = 3, batch: int = 2, num_j: int = 41, siz
         plane = (img // (views * views)) * views + img % views
         centers[img, 4] = (grid(u), grid(v), target[plane, v, u])
     return centers, target, radii
+
+
+# Distances (mm) by which a disc misses (> 0) or overlaps (< 0) a tile's
+# first or last pixel centre, around the forward kernel's one-pixel cull
+# margin (300 / 64 = 4.6875 mm).
+EDGE_OFFSETS_MM = (-4.6875, -1.0, -0.01, -1e-4, 0.0, 1e-4, 0.01, 1.0,
+                   4.0, 4.6, 4.6875, 4.7, 5.0, 9.0, 9.375, 14.0)
+CORNER_OFFSETS_MM = (-1.0, 0.0, 0.5, 4.0, 4.6875, 5.0, 6.0, 9.0)
+
+
+def sphere_edge_case(views: int = 3, batch: int = 2, num_j: int = 41, size: int = 64,
+                     seed: int = 6, tile: int = 8):
+    """Inputs at the edges of the sphere kernels' shortcuts, as numpy
+    float32: (centers (B*V*V, J, 3) mm, target (B*V, S, S) mm, radii (J,)).
+
+    - spheres 5-20 and 31-38: discs whose edge lies within a few pixels of a
+      ``tile`` x ``tile`` tile's edge, inside or outside (``EDGE_OFFSETS_MM``
+      from a tile's first or last pixel centre, in x and then in y), and
+      spheres 21-28 the same at a tile's corner (``CORNER_OFFSETS_MM``);
+    - sphere 30 (r = 6) sits on pixel (4, 4) at cz = 106, where no other
+      sphere reaches: its covered depth is >= 100 (100 at that pixel), so the
+      uncovered sphere 0 (j lower) keeps the 100 there;
+    - in every third image, sphere 0 (r = 6) sits on pixel (59, 59) at
+      cz = 106: a covered depth of exactly 100 with the lowest j, ahead of
+      every uncovered sphere;
+    - target plane 0 is foreground at every pixel; planes 1 and 4 hold
+      observations of exactly 99.0 (not background) and of 99.00001
+      (background), and NaN (not background) at a few pixels.
+    """
+    rng = np.random.RandomState(seed)
+    n = batch * views * views
+    f32 = np.float32
+    grid = lambda i: f32((f32(i) - f32(size / 2)) * f32(300.0) / f32(size))  # noqa: E731
+    centers = rng.uniform(-60, 60, (n, num_j, 3)).astype(f32)
+    radii = rng.uniform(4, 12, (num_j,)).astype(f32)
+    radii[0] = radii[30] = 6.0
+    for img in range(n):
+        for k, delta in enumerate(EDGE_OFFSETS_MM):
+            for j, axis in ((5 + k, 0), (31 + k // 2, 1)):
+                if axis == 1 and k % 2:
+                    continue
+                edge = tile * (3 + (img + j) % 3)
+                r = radii[j]
+                # left of the tile starting at `edge`, or right of the one
+                # ending at `edge - 1`
+                centers[img, j, axis] = (grid(edge) - r - f32(delta) if (img + k) % 2 == 0
+                                         else grid(edge - 1) + r + f32(delta))
+        for k, delta in enumerate(CORNER_OFFSETS_MM):
+            j = 21 + k
+            reach = (radii[j] + f32(delta)) / f32(np.sqrt(2.0))
+            edge = tile * (3 + (img + k) % 3)
+            centers[img, j, 0] = grid(edge) - reach
+            centers[img, j, 1] = grid(edge) - reach
+        centers[img, 30] = (grid(4), grid(4), 106.0)
+        if img % 3 == 0:
+            centers[img, 0] = (grid(59), grid(59), 106.0)
+    target = np.full((batch * views, size, size), 100.0, f32)
+    target[:, 12:52, 12:52] = rng.uniform(-60, 60, (target.shape[0], 40, 40))
+    target[0] = rng.uniform(-60, 60, (size, size))
+    for plane in (1, 4):
+        target[plane, 20, 12:52] = 99.0
+        target[plane, 5, 5:60] = 99.0
+        target[plane, 6, 5:60] = 99.00001
+        target[plane, 30, 30] = target[plane, 31, 45] = target[plane, 2, 2] = np.nan
+    return centers, target, radii

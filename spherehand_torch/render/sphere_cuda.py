@@ -43,10 +43,12 @@ Beside each kernel is its plain PyTorch version with the same expression
 order (``fused_{primal,fwd,bwd}_plain``, ``min_depth_{primal,fwd,bwd}_plain``,
 ``d2m_{primal,fwd,bwd}_plain``). An op takes the plain version only for a CPU
 tensor; for a CUDA tensor it launches the kernel or raises. Target depth and
-radii get no gradient, as in the JAX ops.
+radii get no gradient, as in the JAX ops. :func:`tile_covered` is the plain
+mirror of the forward kernel's disc-against-tile test.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -66,6 +68,8 @@ LAUNCHES = {f"{LAUNCH_PREFIX[f]}_{kind}": 0 for f in (BOTH, DEPTH, DIST)
             for kind in ("primal", "fwd", "bwd")}
 MAX_SPHERES = 64      # csrc/sphere.cu kMaxJ
 MAX_PIXELS = 4096     # csrc/sphere.cu kPixelsPerThread * kBwdThreads
+TILE = 8              # csrc/sphere.cu kTile: the forward's depth tiles, TILE x TILE pixels
+CULL_MARGIN_MM = _C.cube_mm / 64.0  # csrc/sphere.cu kCullMarginMm
 # The plain versions broadcast over (images, J, S, S) a chunk of images at a
 # time, at most about this many elements per temporary.
 PLAIN_CHUNK_ELEMENTS = 1 << 22
@@ -88,20 +92,36 @@ def build() -> tuple[str, str]:
     return cuda_build.build("sphere")
 
 
+def bind(path: str):
+    """Load a build of ``csrc/sphere.cu`` and declare its C interface."""
+    lib = ctypes.CDLL(path)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.shx_sphere_fields.argtypes = [ptr] * 3 + [i32] * 4 + [ptr] * 6 + [i32, i32, ptr]
+    lib.shx_sphere_fields.restype = i32
+    lib.shx_sphere_fields_bwd.argtypes = [ptr] * 8 + [i32] * 5 + [ptr, ptr]
+    lib.shx_sphere_fields_bwd.restype = i32
+    lib.shx_sphere_error_string.argtypes = [i32]
+    lib.shx_sphere_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _library():
     global _lib
     if _lib is None:
-        path, _ = build()
-        lib = ctypes.CDLL(path)
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.shx_sphere_fields.argtypes = [ptr] * 3 + [i32] * 4 + [ptr] * 6 + [i32, i32, ptr]
-        lib.shx_sphere_fields.restype = i32
-        lib.shx_sphere_fields_bwd.argtypes = [ptr] * 8 + [i32] * 5 + [ptr, ptr]
-        lib.shx_sphere_fields_bwd.restype = i32
-        lib.shx_sphere_error_string.argtypes = [i32]
-        lib.shx_sphere_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = bind(build()[0])
     return _lib
+
+
+@contextlib.contextmanager
+def use_library(lib):
+    """Launch every sphere kernel from ``lib`` (a :func:`bind` result) inside
+    the block, then from the build it replaced."""
+    global _lib
+    old, _lib = _library(), lib
+    try:
+        yield
+    finally:
+        _lib = old
 
 
 # ----------------------------------------------------------- plain versions
@@ -321,6 +341,24 @@ def fields_bwd_plain(fields: int, centers, target, views: int, grads, res):
     return fused_bwd_plain(centers, target, views, *grads, *res)
 
 
+def tile_covered(centers, radii, size: int, tile: int = TILE) -> torch.Tensor:
+    """The forward kernel's disc-against-tile test (``disc_meets_box``):
+    (N, rows of tiles, columns of tiles, J) bool, False only where sphere
+    j's centre lies more than r + ``CULL_MARGIN_MM`` from the pixel centres
+    of the tile, in the kernel's float32 operations (``fmax`` drops a NaN as
+    ``fmaxf`` does; a NaN radius keeps the sphere)."""
+    grid = _mm_grid(1, size, centers.dtype, centers.device)[0][0]
+    starts = torch.arange(0, size, tile, device=centers.device)
+    lo, hi = grid[starts], grid[torch.clamp(starts + tile, max=size) - 1]
+    zero = torch.zeros((), dtype=centers.dtype, device=centers.device)
+    cx = centers[:, None, None, :, 0]
+    cy = centers[:, None, None, :, 1]
+    ex = torch.fmax(torch.fmax(lo[None, None, :, None] - cx, cx - hi[None, None, :, None]), zero)
+    ey = torch.fmax(torch.fmax(lo[None, :, None, None] - cy, cy - hi[None, :, None, None]), zero)
+    lim = radii + CULL_MARGIN_MM
+    return ~((ex > lim) | (ey > lim) | (ex * ex + ey * ey > lim * lim))
+
+
 # ------------------------------------------------------------------ kernels
 
 
@@ -333,12 +371,14 @@ def _check(t: torch.Tensor, name: str, shape: tuple, dtype=torch.float32) -> Non
         raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
 
 
-def _check_inputs(fields, centers, target, size, views):
+def _check_inputs(fields, centers, target, radii, size, views):
     n, num_j = centers.shape[:2]
-    if num_j > MAX_SPHERES or size * size > MAX_PIXELS or n % (views * views):
-        raise ValueError(f"sphere kernels take J <= {MAX_SPHERES}, S*S <= {MAX_PIXELS} "
+    if not 1 <= num_j <= MAX_SPHERES or size * size > MAX_PIXELS or n % (views * views):
+        raise ValueError(f"sphere kernels take 1 <= J <= {MAX_SPHERES}, S*S <= {MAX_PIXELS} "
                          f"and N divisible by views**2; got N={n} J={num_j} S={size} V={views}")
     _check(centers, "centers", (n, num_j, 3))
+    if radii is not None:
+        _check(radii, "radii", (num_j,))
     if fields & DIST:
         _check(target, "target", (n // views, size, size))
 
@@ -347,9 +387,65 @@ def _ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+def _launch(fn, device, *args) -> int:
+    """Call ``fn(*args, stream)`` on ``device``'s current stream, with that
+    device current."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index is None or device.index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(device):
+        return fn(*args, stream)
+
+
 def _raise_on(rc: int, name: str, lib) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: {lib.shx_sphere_error_string(rc).decode()}")
+
+
+def _fields_kernel(fields, centers, target, radii, size, views, residuals):
+    """The forward kernel on inputs already checked. Its planes are views of
+    one buffer: the fields, then each field's (argmin int32, weight)."""
+    n, num_j = centers.shape[:2]
+    k = num_fields(fields)
+    buf = torch.empty((3 * k if residuals else k, n, size, size), dtype=torch.float32,
+                      device=centers.device)
+    planes = buf.unbind(0)
+    if residuals:
+        planes = planes[:k] + tuple(p.view(torch.int32) if i % 2 == 0 else p
+                                    for i, p in enumerate(planes[k:]))
+    base, step = buf.data_ptr(), 4 * n * size * size
+    at = [base + i * step for i in range(len(planes))]
+    depth = at[0] if fields & DEPTH else None
+    dist = at[k - 1] if fields & DIST else None
+    res_d = (at[k], at[k + 1]) if residuals and fields & DEPTH else (None, None)
+    res_m = (at[3 * k - 2], at[3 * k - 1]) if residuals and fields & DIST else (None, None)
+    lib = _library()
+    rc = _launch(lib.shx_sphere_fields, centers.device, centers.data_ptr(), radii.data_ptr(),
+                 _ptr(target if fields & DIST else None), n, num_j, size, views, depth, dist,
+                 *res_d, *res_m, fields, int(residuals))
+    name = f"{LAUNCH_PREFIX[fields]}_{'fwd' if residuals else 'primal'}"
+    _raise_on(rc, name, lib)
+    LAUNCHES[name] += 1
+    return planes
+
+
+def _fields_bwd_kernel(fields, centers, target, views, grads, res):
+    """The backward kernel on inputs already checked."""
+    n, num_j = centers.shape[:2]
+    size = grads[0].shape[-1]
+    g_depth = grads[0] if fields & DEPTH else None
+    g_dist = grads[-1] if fields & DIST else None
+    res_d = tuple(res[:2]) if fields & DEPTH else (None, None)
+    res_m = tuple(res[-2:]) if fields & DIST else (None, None)
+    out = torch.empty((n, num_j, 3), dtype=torch.float32, device=centers.device)
+    lib = _library()
+    rc = _launch(lib.shx_sphere_fields_bwd, centers.device, centers.data_ptr(),
+                 _ptr(target if fields & DIST else None), _ptr(g_depth), _ptr(g_dist),
+                 *map(_ptr, res_d + res_m), n, num_j, size, views, fields, out.data_ptr())
+    name = f"{LAUNCH_PREFIX[fields]}_bwd"
+    _raise_on(rc, name, lib)
+    LAUNCHES[name] += 1
+    return out
 
 
 def launch_fields(fields: int, centers, target, radii, size: int, views: int = 1,
@@ -357,60 +453,27 @@ def launch_fields(fields: int, centers, target, radii, size: int, views: int = 1
     """Run the forward kernel for ``fields``: the field planes (depth before
     distance), then with ``residuals`` each field's (argmin int32, weight)
     planes, each (N, S, S). ``target`` may be None for ``DEPTH``."""
-    _check_inputs(fields, centers, target, size, views)
-    n, num_j = centers.shape[:2]
-    _check(radii, "radii", (num_j,))
-
-    def plane(dtype=torch.float32):
-        return torch.empty((n, size, size), dtype=dtype, device=centers.device)
-
-    depth = plane() if fields & DEPTH else None
-    dist = plane() if fields & DIST else None
-    res_d = (plane(torch.int32), plane()) if residuals and fields & DEPTH else (None, None)
-    res_m = (plane(torch.int32), plane()) if residuals and fields & DIST else (None, None)
-    lib = _library()
-    stream = torch.cuda.current_stream(centers.device).cuda_stream
-    with torch.cuda.device(centers.device):
-        rc = lib.shx_sphere_fields(
-            centers.data_ptr(), radii.data_ptr(), _ptr(target if fields & DIST else None),
-            n, num_j, size, views, _ptr(depth), _ptr(dist), *map(_ptr, res_d + res_m),
-            fields, int(residuals), stream,
-        )
-    name = f"{LAUNCH_PREFIX[fields]}_{'fwd' if residuals else 'primal'}"
-    _raise_on(rc, name, lib)
-    LAUNCHES[name] += 1
-    return tuple(t for t in (depth, dist, *res_d, *res_m) if t is not None)
+    _check_inputs(fields, centers, target, radii, size, views)
+    return _fields_kernel(fields, centers, target, radii, size, views, residuals)
 
 
 def launch_fields_bwd(fields: int, centers, target, views: int, grads, res):
     """Run the backward kernel for ``fields`` -> (N, J, 3). ``grads`` are
     the field cotangents and ``res`` the residual planes, in the order
     :func:`launch_fields` gives them."""
-    n, num_j = centers.shape[:2]
+    n = centers.shape[0]
     size = grads[0].shape[-1]
-    _check_inputs(fields, centers, target, size, views)
-    g_depth = grads[0] if fields & DEPTH else None
-    g_dist = grads[-1] if fields & DIST else None
-    res_d = tuple(res[:2]) if fields & DEPTH else (None, None)
-    res_m = tuple(res[-2:]) if fields & DIST else (None, None)
-    for t, name, dtype in ((g_depth, "g_depth", torch.float32), (g_dist, "g_dist", torch.float32),
-                           (res_d[0], "amind", torch.int32), (res_d[1], "wd", torch.float32),
-                           (res_m[0], "aminm", torch.int32), (res_m[1], "wm", torch.float32)):
-        if t is not None:
-            _check(t, name, (n, size, size), dtype)
-    out = torch.empty((n, num_j, 3), dtype=torch.float32, device=centers.device)
-    lib = _library()
-    stream = torch.cuda.current_stream(centers.device).cuda_stream
-    with torch.cuda.device(centers.device):
-        rc = lib.shx_sphere_fields_bwd(
-            centers.data_ptr(), _ptr(target if fields & DIST else None), _ptr(g_depth),
-            _ptr(g_dist), *map(_ptr, res_d + res_m), n, num_j, size, views, fields,
-            out.data_ptr(), stream,
-        )
-    name = f"{LAUNCH_PREFIX[fields]}_bwd"
-    _raise_on(rc, name, lib)
-    LAUNCHES[name] += 1
-    return out
+    _check_inputs(fields, centers, target, None, size, views)
+    named = []
+    if fields & DEPTH:
+        named += [(grads[0], "g_depth", torch.float32), (res[0], "amind", torch.int32),
+                  (res[1], "wd", torch.float32)]
+    if fields & DIST:
+        named += [(grads[-1], "g_dist", torch.float32), (res[-2], "aminm", torch.int32),
+                  (res[-1], "wm", torch.float32)]
+    for t, name, dtype in named:
+        _check(t, name, (n, size, size), dtype)
+    return _fields_bwd_kernel(fields, centers, target, views, grads, res)
 
 
 # --------------------------------------------------------------------- ops
@@ -423,7 +486,7 @@ class _SphereFields(torch.autograd.Function):
     @staticmethod
     def forward(ctx, fields, centers, target, radii, size, views):
         args = (fields, centers, target, radii, size, views, True)
-        planes = fields_plain(*args) if centers.device.type == "cpu" else launch_fields(*args)
+        planes = fields_plain(*args) if centers.device.type == "cpu" else _fields_kernel(*args)
         k = num_fields(fields)
         ctx.save_for_backward(centers, target, *planes[k:])
         ctx.fields, ctx.views = fields, views
@@ -433,20 +496,25 @@ class _SphereFields(torch.autograd.Function):
     def backward(ctx, *grads):
         centers, target, *res = ctx.saved_tensors
         args = (ctx.fields, centers, target, ctx.views, [g.contiguous() for g in grads], res)
-        out = fields_bwd_plain(*args) if centers.device.type == "cpu" else launch_fields_bwd(*args)
+        out = fields_bwd_plain(*args) if centers.device.type == "cpu" else _fields_bwd_kernel(*args)
         # the target is observed data and the radii are constants
         return None, out, None, None, None, None
 
 
 def _apply(fields, centers, target, radii, size: int, views: int):
+    """Route one op: CPU tensors to the plain versions; CUDA tensors, checked
+    here once, to the kernels (the autograd path checks nothing again)."""
     centers = centers.contiguous()
     if target is not None:
         target = target.to(centers.dtype).contiguous()
     radii = radii.to(centers.dtype).contiguous()
+    cpu = centers.device.type == "cpu"
+    if not cpu:
+        _check_inputs(fields, centers, target, radii, size, views)
     if torch.is_grad_enabled() and centers.requires_grad:
         return _SphereFields.apply(fields, centers, target, radii, size, views)
     args = (fields, centers, target, radii, size, views)
-    return fields_plain(*args) if centers.device.type == "cpu" else launch_fields(*args)
+    return fields_plain(*args) if cpu else _fields_kernel(*args, False)
 
 
 def sphere_min_depth(centers, radii, size: int):

@@ -145,10 +145,10 @@ def test_render_counts_launches(hand_planes):
 
 
 def _sphere_inputs(case: str, device):
-    from spherehand_torch.render.adversarial import sphere_adversarial_case
+    from spherehand_torch.render.adversarial import sphere_adversarial_case, sphere_edge_case
 
-    if case == "adversarial":
-        arrays = sphere_adversarial_case()
+    if case in ("adversarial", "edge"):
+        arrays = sphere_adversarial_case() if case == "adversarial" else sphere_edge_case()
         views = 3
     else:  # the loss-stack scale of tools/tpu_sphere_parity.py: N = 225, J = 41
         rng = np.random.RandomState(77)
@@ -161,7 +161,7 @@ def _sphere_inputs(case: str, device):
     return (*(torch.as_tensor(a, device=device) for a in arrays), views)
 
 
-@pytest.mark.parametrize("case", ["random_225", "adversarial"])
+@pytest.mark.parametrize("case", ["random_225", "adversarial", "edge"])
 def test_sphere_kernels_match_plain(cuda, case):
     from spherehand_torch.render import sphere_cuda
 
@@ -233,7 +233,7 @@ def test_raster_fast_on_a_non_uniform_grid(hand_planes):
     assert float((kernel - plain).abs().max()) <= 1e-3
 
 
-@pytest.mark.parametrize("case", ["random_225", "adversarial"])
+@pytest.mark.parametrize("case", ["random_225", "adversarial", "edge"])
 @pytest.mark.parametrize("field", ["depth", "distance"])
 def test_per_field_sphere_kernels_match_plain_and_fused(cuda, case, field):
     """The one-field kernels against their plain versions (the phase 6
@@ -249,7 +249,7 @@ def test_per_field_sphere_kernels_match_plain_and_fused(cuda, case, field):
     fused = contracts.split_fused_planes(
         sc.launch_fields(sc.BOTH, centers, target, radii, 64, views, residuals=True))
     for ours, ref in zip(stats.pop("kernel")["fwd"], fused[fields]):
-        assert torch.equal(ours, ref)
+        assert contracts.same_bits(ours, ref)
     assert contracts.sphere_ok(stats), stats
 
 

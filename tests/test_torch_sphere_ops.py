@@ -31,7 +31,10 @@ from spherehand_tpu.render import sphere_pallas as jpallas  # noqa: E402
 from spherehand_torch.losses import multiview  # noqa: E402
 from spherehand_torch.render import sphere as tsphere  # noqa: E402
 from spherehand_torch.render import sphere_cuda as sc  # noqa: E402
-from spherehand_torch.render.adversarial import sphere_adversarial_case  # noqa: E402
+from spherehand_torch.render.adversarial import (  # noqa: E402
+    sphere_adversarial_case,
+    sphere_edge_case,
+)
 
 N, J, S = 3, 41, 64
 
@@ -76,14 +79,33 @@ def _grad(fn, centers, cotangent):
     return leaf.grad.numpy()
 
 
-def test_plain_fields_bit_identical_to_op_by_op_jax():
-    centers, radii, z, _ = _fixture()
+def _assert_plain_fields_equal_jax(centers, radii, z):
+    """The plain fields against the XLA fields op by op (jax.disable_jit):
+    bit for bit, NaN at the same pixels. Returns the distance field."""
     tc, tr, tz = _t(centers, radii, z)
     with jax.disable_jit():
         ref_d = _jax_depth_field(jnp.asarray(centers), jnp.asarray(radii))
         ref_m = _jax_d2m_field(jnp.asarray(centers), jnp.asarray(radii), jnp.asarray(z))
     np.testing.assert_array_equal(sc.min_depth_primal_plain(tc, tr, S).numpy(), np.asarray(ref_d))
-    np.testing.assert_array_equal(sc.d2m_primal_plain(tz, tc, tr, S).numpy(), np.asarray(ref_m))
+    ours_m = sc.d2m_primal_plain(tz, tc, tr, S).numpy()
+    np.testing.assert_array_equal(ours_m, np.asarray(ref_m))
+    return ours_m
+
+
+def test_plain_fields_bit_identical_to_op_by_op_jax():
+    centers, radii, z, _ = _fixture()
+    _assert_plain_fields_equal_jax(centers, radii, z)
+
+
+def test_edge_case_plain_fields_equal_op_by_op_jax():
+    """The same on the edge inputs (``adversarial.sphere_edge_case``: discs
+    at a tile's edge, depth >= 100 behind an uncovered sphere, observations
+    of 99.0 and NaN, an all-foreground view), each view pair against its
+    gathered observation."""
+    centers, target, radii = sphere_edge_case()
+    z = sc.gathered_target(torch.from_numpy(target), centers.shape[0], 3).numpy()
+    ours_m = _assert_plain_fields_equal_jax(centers, radii, z)
+    assert np.isnan(ours_m).sum() == np.isnan(z).sum() > 0
 
 
 def test_plain_planes_match_pallas_interpret():
