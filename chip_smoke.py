@@ -5,11 +5,12 @@ Phases, each fatal on failure:
   1. versions, device name, power limit;
   2. build the CUDA rasterizers and sphere kernels from spherehand_torch/csrc
      with nvcc, one process per source, started together;
-  3. each kernel against its plain PyTorch version on the card: full mesh at
-     B = 8 sampler poses plus the adversarial face sets; the two z-tile
-     kernels (read from the projected planes) a second time and on the
-     reversed face order, bit for bit; fast against exact by the fast-mode
-     contract (phase 5 repeats the kernel checks at the main path's B = 128);
+  3. each raster kernel against its plain PyTorch version on the card: full
+     mesh at B = 8 sampler poses plus the adversarial face sets; the three
+     z-tile kernels (read from the projected planes) a second time and on
+     the reversed face order, bit for bit, raw fast bit for bit against its
+     plain version; fast against exact by the fast-mode contract (phase 5
+     repeats the kernel checks at the main path's B = 128);
   4. the main path: B = 128 sampler poses -> synthesize(add_noise=True), in
      the fast (default) and the exact raster mode -> PoseEstimator with the
      shipped weights (precision "highest") -> mean joint error under 25 mm,
@@ -59,11 +60,19 @@ Phases, each fatal on failure:
          p99 < 0.5 mm against the exact rule, pooled median < 0.05 mm) and
          stack_loss / its gradient norm within 2e-4 / 1e-3 relative of
          tests/goldens/tpu_sphere_parity.npz (a TPU v5e's, the correctness
-         reference); raster_fast against its plain version (max |diff|
-         <= 1e-3 mm, identical coverage) at B = 128, 1024, on a non-uniform
-         grid and on the adversarial face sets, where raw fast-vs-exact
-         coverage flips stay under 1 %;
-     (d) CUDA-event medians of each new kernel and its plain version.
+         reference); raster_fast (from the planes, no pre-pass) against its
+         plain version bit for bit, and again and on the reversed face
+         order, at B = 128, 1024, on a non-uniform grid, on the whole 640 x
+         640 canvas (B = 4) and on the adversarial face sets, where raw
+         fast-vs-exact coverage flips stay under 1 %;
+     (d) CUDA-event medians of each one-field sphere kernel and its plain
+         version, and of raster_fast at B = 128 and 1024 on the 128 x 128
+         grid and at B = 32 on the 640 x 640 canvas;
+ 11. launch limits: the three raster kernels at B = 65,537 (8 hands'
+     planes, repeated) and the fused sphere kernels (forward, primal,
+     backward) at N = 65,538 (phase 6's 25 hands repeated to B = 7,282 at V
+     = 3); a few images at each end against their plain versions, held as in
+     phases 3 and 6, and the first images equal to a launch of those alone.
 
 The last three lines of standard output are the kernels JSON line, the card's
 name and power limit, and the result line. Exits non-zero without a GPU.
@@ -89,10 +98,11 @@ PARAMS = os.path.join(ROOT, "assets", "pretrained", "synthetic_params.npz")
 # outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# The z-tile kernels (raster_fast_pooled, raster_exact) read the projected
-# planes, 9 floats a face (u, v, z of three vertices), and no records: their
-# bound counts the planes, the two sample vectors and the canvas written
-# once. Operations, counted from csrc/raster.cu: a face's setup once
+# The z-tile kernels (raster_fast_pooled, raster_exact, raster_fast) read the
+# projected planes, 9 floats a face (u, v, z of three vertices), and no
+# records: their bound counts the planes, the two sample vectors and the
+# canvas written once (raster_fast's binning scratch is the design's, not
+# the function's). Operations, counted from csrc/raster.cu: a face's setup once
 # (sort_face 35, face_box, barycentric_rows 27, the record and the binary
 # searches of its box: fast 140, exact 120), each face-sample test (fast: the
 # item's lookup over the drain's prefix sum 27 and its row and column 4, w0,
@@ -102,14 +112,10 @@ F32_OPS_PER_S = 67e12
 # exact mode, each face-column (its lookup 27, edges 8, span bounds 7,
 # column parts 6, two binary searches over 64 rows 36 = 84). The scan's
 # repeated setup per tile is the design's cost, not the function's, and is
-# not counted.
+# not counted; raster_fast is counted as the fast kernel, raw.
 PLANE_FLOATS_PER_FACE = 9
 ZTILE_FAST_OPS = {"face": 140, "test": 53}
 ZTILE_EXACT_OPS = {"face": 120, "test": 26, "column": 84}
-# raster_fast reads the pre-pass records (9 floats) and boxes (4); one
-# face-sample test = box test 4 + w0, w1, q 4 each + w2 2 + 3 compares +
-# reciprocal + min.
-FAST_OPS_PER_TEST = 22
 MAIN_BATCH = 128
 BATCHES = (MAIN_BATCH, 1024)
 REPS = 20
@@ -162,6 +168,15 @@ STACK_LOSS_REL = 2e-4
 STACK_GRAD_NORM_REL = 1e-3
 SPHERE_PARITY = os.path.join(ROOT, "tests", "goldens", "tpu_sphere_parity.npz")
 PLAIN_REPS = 5
+# raster_fast on the whole canvas: the reference renders 640 x 640
+# (mesh/render.py:282-331), which JAX runs as 80 tiles of 8.
+CANVAS = 640
+CANVAS_BATCH = 32
+CANVAS_CHECK_BATCH = 4
+# Launch limits: past 65,535 images, where gridDim.y or .z would stop.
+LIMIT_BATCH = 65_537
+LIMIT_SPHERE_HANDS = 7_282  # N = 7,282 x 3 x 3 = 65,538
+LIMIT_CHECK = 3  # images (raster) or hands (sphere) checked at each end
 # GPU vs CPU combined_grads (TF32 off on the card): loss terms within 1e-3
 # relative; per-tensor gradient norms within 5 %, the bound
 # tests/test_grad_parity.py puts on float32 accumulation order amplified
@@ -215,13 +230,6 @@ def box_samples(box, sample_x, sample_y) -> tuple[torch.Tensor, torch.Tensor]:
     return nx, ny
 
 
-def face_sample_tests(box, sample_x, sample_y) -> int:
-    """Face-sample pairs a binned render must test: for every kept face, the
-    samples inside its box."""
-    nx, ny = box_samples(box, sample_x, sample_y)
-    return int((nx * ny).sum())
-
-
 def ztile_bound(box, sample_x, sample_y, out_numel: int, ops: dict) -> tuple:
     """Bound of a z-tile kernel on one geometry: the planes, both sample
     vectors and the canvas once; its face setups, face-sample tests and
@@ -233,6 +241,99 @@ def ztile_bound(box, sample_x, sample_y, out_numel: int, ops: dict) -> tuple:
     bytes_moved = 4 * (PLANE_FLOATS_PER_FACE * batch * num_faces + sample_x.numel()
                        + sample_y.numel() + out_numel)
     return bound(bytes_moved, sum(n * count[k] for k, n in ops.items())), count
+
+
+def max_abs_diff(a, b) -> float:
+    """max |a - b|, where equal values (infinities too) count 0."""
+    return float(torch.where(a == b, torch.zeros_like(a), (a - b).abs()).max())
+
+
+def launch_limits(raster_cuda, sc, hand_planes, samples, centers, target, radii, size: int,
+                  views: int) -> None:
+    """Phase 11: the raster kernels at LIMIT_BATCH images and the fused
+    sphere kernels at LIMIT_SPHERE_HANDS x views x views images, past the
+    65,535 that gridDim.y and .z allow. The first and last images against
+    their plain versions (raster: raw fast and pooled bit for bit, exact by
+    the exact contract; sphere: as phase 6, the backward against the plain
+    backward on the same images), and the first against a launch of those
+    images alone, bit for bit."""
+    from spherehand_torch.render import contracts
+    from spherehand_torch.render.raster import rasterize_depth
+
+    _, _, few = hand_planes(8, 0)
+    reps = -(-LIMIT_BATCH // 8)
+    planes = tuple(p.repeat(reps, 1)[:LIMIT_BATCH].contiguous() for p in few)
+    ends = torch.cat([torch.arange(LIMIT_CHECK), torch.arange(LIMIT_BATCH - LIMIT_CHECK,
+                                                              LIMIT_BATCH)]).to(samples.device)
+    part = tuple(p[ends].contiguous() for p in planes)
+    fv = torch.stack(part, dim=-1).reshape(part[0].shape[0], -1, 3, 3)
+    s = samples
+    runs = {
+        "raster_fast": (lambda p: raster_cuda.launch_raster_fast(p, s, s),
+                        lambda: raster_cuda.raster_fast_plain(
+                            *raster_cuda.prepass_fast(planes=part), s, s)),
+        "raster_fast_pooled": (lambda p: raster_cuda.launch_raster_fast_pooled(p, s, s, 100.0),
+                               lambda: raster_cuda.raster_fast_plain(
+                                   *raster_cuda.prepass_fast(planes=part), s, s, 100.0)),
+        "raster_exact": (lambda p: raster_cuda.launch_raster_exact(p, s, s, 640, 640),
+                         lambda: rasterize_depth(fv, s, s)),
+    }
+    report = {}
+    for name, (launch, plain) in runs.items():
+        full = launch(planes)[ends]
+        alone = launch(tuple(p[:LIMIT_CHECK].contiguous() for p in planes))
+        ref = plain()
+        torch.cuda.synchronize()
+        if name == "raster_exact":
+            st = contracts.exact_stats(full, ref)
+            ok = contracts.exact_ok(st) and st["max_abs_err"] <= EXACT_MAX_ERR
+        else:
+            ok = contracts.same_bits(full, ref)
+        ok = ok and contracts.same_bits(full[:LIMIT_CHECK], alone)
+        report[name] = max_abs_diff(full, ref)
+        if not ok:
+            fail(f"{name} at B={LIMIT_BATCH}: images {ends.tolist()} vs plain max |diff| "
+                 f"{report[name]}, or not equal to a launch of the first {LIMIT_CHECK} alone")
+        del full, alone
+    del planes
+    torch.cuda.empty_cache()
+
+    hands = centers.shape[0] // (views * views)
+    pick = torch.arange(LIMIT_SPHERE_HANDS, device=centers.device) % hands
+    big_c = centers.reshape(hands, views * views, *centers.shape[1:])[pick].reshape(
+        -1, *centers.shape[1:]).contiguous()
+    big_t = target.reshape(hands, views, *target.shape[1:])[pick].reshape(
+        -1, *target.shape[1:]).contiguous()
+    n = big_c.shape[0]
+    k = sc.num_fields(sc.BOTH)
+    args = (sc.BOTH, big_c, big_t, radii, size, views)
+    fwd = sc.launch_fields(*args, residuals=True)
+    primal = sc.launch_fields(*args, residuals=False)
+    grads = [torch.ones_like(p) for p in fwd[:k]]
+    bwd = sc.launch_fields_bwd(sc.BOTH, big_c, big_t, views, grads, fwd[k:])
+    img = views * views
+    for first_hand in (0, LIMIT_SPHERE_HANDS - LIMIT_CHECK):
+        sl = slice(first_hand * img, (first_hand + LIMIT_CHECK) * img)
+        tl = slice(first_hand * views, (first_hand + LIMIT_CHECK) * views)
+        c, t = big_c[sl].contiguous(), big_t[tl].contiguous()
+        p_fwd = sc.fields_plain(sc.BOTH, c, t, radii, size, views, residuals=True)
+        p_primal = sc.fields_plain(sc.BOTH, c, t, radii, size, views, residuals=False)
+        p_bwd = sc.fields_bwd_plain(sc.BOTH, c, t, views, [g[sl] for g in grads],
+                                    [r[sl] for r in fwd[k:]])
+        torch.cuda.synchronize()
+        st = contracts.sphere_fwd_stats([x[sl] for x in fwd], p_fwd, k)
+        st["primal_max_abs_err"] = max(max_abs_diff(a[sl], b) for a, b in zip(primal, p_primal))
+        st["bwd_rel_plain"] = max_abs_diff(bwd[sl], p_bwd) / float(p_bwd.abs().max())
+        report[f"sphere N={n} hands {first_hand}.."] = st
+        if not (st["fields_max_abs_err"] == 0.0 and st["argmin_mismatch"] == 0
+                and st["weight_ulps"] <= contracts.SPHERE_WEIGHT_ULPS
+                and st["primal_max_abs_err"] == 0.0
+                and st["bwd_rel_plain"] <= contracts.SPHERE_BWD_REL):
+            fail(f"fused sphere kernels at N={n}, hands {first_hand}..: {st}")
+    log(f"[11] launch limits: rasters at B={LIMIT_BATCH}, fused sphere kernels at N={n}; "
+        f"end images vs plain: {json.dumps(report)}")
+    del fwd, primal, bwd, big_c, big_t
+    torch.cuda.empty_cache()
 
 
 def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
@@ -396,13 +497,16 @@ def main() -> int:
                      for p in planes)
 
     def compare(fv, s, size, tag):
-        """Both z-tile kernels, from the planes, vs their plain versions on
-        one geometry, then again and on the reversed face order, bit for
-        bit; returns the kernels' max |diff| to the plain versions."""
+        """The three z-tile kernels, from the planes, vs their plain versions
+        on one geometry (raw fast bit for bit), then again and on the
+        reversed face order, bit for bit; returns the exact and pooled
+        kernels' max |diff| to the plain versions, the pooled kernel's
+        canvas and the plain exact and raw fast ones."""
         planes = raster_cuda.planes_of(fv)
         launches = {
             "exact": lambda p: raster_cuda.launch_raster_exact(p, s, s, size, size),
             "fast": lambda p: raster_cuda.launch_raster_fast_pooled(p, s, s, 100.0),
+            "raw": lambda p: raster_cuda.launch_raster_fast(p, s, s),
         }
         k_exact = launches["exact"](planes)
         p_exact = rasterize_depth(fv, s, s, size, size)
@@ -416,26 +520,31 @@ def main() -> int:
         fast_err = float((k_fast - p_fast).abs().max())
         if not fast_err <= FAST_MAX_ERR:
             fail(f"{tag}: fast kernel vs plain fast max |diff| {fast_err}")
-        for mode, first in (("exact", k_exact), ("fast", k_fast)):
+        k_raw = launches["raw"](planes)
+        p_raw = raster_cuda.raster_fast_plain(rec_f, box_f, s, s)
+        torch.cuda.synchronize()
+        if not contracts.same_bits(k_raw, p_raw):
+            fail(f"{tag}: raster_fast vs plain max |diff| {float((k_raw - p_raw).abs().max())}, "
+                 "not bit for bit")
+        for mode, first in (("exact", k_exact), ("fast", k_fast), ("raw", k_raw)):
             again, flipped = launches[mode](planes), launches[mode](reversed_faces(planes))
             torch.cuda.synchronize()
             if not (contracts.same_bits(first, again) and contracts.same_bits(first, flipped)):
                 fail(f"{tag}: {mode} kernel not bit-identical across launches "
                      f"({contracts.same_bits(first, again)}) or face orders "
                      f"({contracts.same_bits(first, flipped)})")
-        return st["max_abs_err"], fast_err, k_fast, p_exact, rec_f, box_f
+        return st["max_abs_err"], fast_err, k_fast, p_exact, p_raw
 
     # ---------------------------------------------------------------- 3
     _, _, planes8 = hand_planes(8, args.seed)
     fv8 = face_vertices(planes8)
-    e_err, f_err, k_fast, p_exact, rec_f, box_f = compare(fv8, samples, 640, "hand B=8")
-    fast_raw = raster_cuda.raster_fast_plain(rec_f, box_f, samples, samples, None)
+    e_err, f_err, k_fast, p_exact, fast_raw = compare(fv8, samples, 640, "hand B=8")
     exact_pooled = pool_2x2(torch.clamp(p_exact, max=100.0))
     fst = contracts.fast_stats(k_fast, exact_pooled, fast_raw, p_exact)
     if not contracts.fast_ok(fst):
         fail(f"fast kernel vs plain exact: {fst}")
-    log(f"[3] hand B=8: exact |diff| max {e_err:.3g}, fast |diff| max {f_err:.3g}, "
-        f"both identical across two launches and the reversed face order, "
+    log(f"[3] hand B=8: exact |diff| max {e_err:.3g}, fast |diff| max {f_err:.3g}, raw fast "
+        f"bit for bit; all three identical across two launches and the reversed face order, "
         f"fast vs exact {json.dumps(fst)}")
     for name, faces, size in adversarial_cases():
         s = samples if size == 640 else torch.arange(size, dtype=torch.float32, device=dev)
@@ -731,37 +840,45 @@ def main() -> int:
             and loss_rel <= STACK_LOSS_REL and norm_rel <= STACK_GRAD_NORM_REL):
         fail(f"kernel_parity out of contract: {parity}; stack loss {loss_rel}, norm {norm_rel}")
 
-    def check_fast(fv, sx, sy, tag):
-        rec, box = raster_cuda.prepass_fast(fv)
-        kern = raster_cuda.launch_raster_fast(rec, box, sx, sy)
-        plain = raster_cuda.raster_fast_plain(rec, box, sx, sy)
+    def check_fast(planes, sx, sy, tag):
+        """raster_fast from the planes against its plain version on the
+        fast pre-pass's records, bit for bit, then again and on the
+        reversed face order."""
+        kern = raster_cuda.launch_raster_fast(planes, sx, sy)
+        plain = raster_cuda.raster_fast_plain(*raster_cuda.prepass_fast(planes=planes), sx, sy)
+        again = raster_cuda.launch_raster_fast(planes, sx, sy)
+        flipped = raster_cuda.launch_raster_fast(reversed_faces(planes), sx, sy)
         torch.cuda.synchronize()
-        err = float((kern - plain).abs().max())
-        cover = bool(torch.equal(kern < 999, plain < 999))
-        if not (err <= FAST_MAX_ERR and cover):
-            fail(f"{tag}: raster_fast vs plain max |diff| {err}, identical coverage {cover}")
+        err = max_abs_diff(kern, plain)
+        same = [contracts.same_bits(kern, x) for x in (plain, again, flipped)]
+        if not all(same):
+            fail(f"{tag}: raster_fast vs plain max |diff| {err}; "
+                 f"bit for bit against plain, again, reversed: {same}")
         return kern, err
 
-    fast_rows = {}
+    fast_rows, fast_err = {}, {}
     for batch in BATCHES:
         _, _, planes = hand_planes(batch, args.seed + 3)
-        fv = face_vertices(planes)
-        _, err = check_fast(fv, samples, samples, f"hands B={batch}")
-        fast_rows[batch] = (fv, planes, err)
+        _, fast_err[batch] = check_fast(planes, samples, samples, f"hands B={batch}")
+        fast_rows[batch] = planes
     gen_grid = torch.Generator(device=dev).manual_seed(args.seed + 10)
     grid_x = torch.sort(torch.rand(100, generator=gen_grid, device=dev) * 640.0).values
     grid_y = (torch.linspace(0.0, 1.0, 77, device=dev) ** 2) * 639.0
-    _, grid_err = check_fast(fast_rows[MAIN_BATCH][0], grid_x, grid_y, "non-uniform 100 x 77 grid")
+    check_fast(fast_rows[MAIN_BATCH], grid_x, grid_y, "non-uniform 100 x 77 grid")
+    canvas = torch.arange(CANVAS, dtype=torch.float32, device=dev)
+    _, _, canvas_planes = hand_planes(CANVAS_BATCH, args.seed + 11)
+    check_fast(tuple(p[:CANVAS_CHECK_BATCH].contiguous() for p in canvas_planes), canvas, canvas,
+               f"{CANVAS} x {CANVAS} canvas B={CANVAS_CHECK_BATCH}")
     flips = {}
     for name, faces, fsize in adversarial_cases():
         s_adv = samples if fsize == 640 else torch.arange(fsize, dtype=torch.float32, device=dev)
         fv_adv = torch.as_tensor(faces, device=dev)
-        kern, _ = check_fast(fv_adv, s_adv, s_adv, name)
+        kern, _ = check_fast(raster_cuda.planes_of(fv_adv), s_adv, s_adv, name)
         exact_adv = rasterize_depth(fv_adv, s_adv, s_adv, fsize, fsize)
         flips[name] = float(((kern < 999) != (exact_adv < 999)).float().mean())
-    log(f"[10c] raster_fast vs plain: max |diff| " +
-        ", ".join(f"B={b} {e:.3g}" for b, (_, _, e) in fast_rows.items()) +
-        f", non-uniform grid {grid_err:.3g}; fast-vs-exact flips {json.dumps(flips)}")
+    log(f"[10c] raster_fast vs plain: bit for bit, again and on the reversed face order, at "
+        f"B={', '.join(map(str, BATCHES))}, on the non-uniform grid, on the {CANVAS} x {CANVAS} "
+        f"canvas and on the adversarial sets; fast-vs-exact flips {json.dumps(flips)}")
     if not max(flips.values()) < ADVERSARIAL_FLIP_MAX:
         fail(f"raster_fast vs exact coverage flips on the adversarial sets: {flips}")
     if fast_launches < 1:
@@ -771,19 +888,28 @@ def main() -> int:
     timings = {}
     for fields, target, views in ((sc.DEPTH, None, 1), (sc.DIST, gathered, 1)):
         timings.update(sphere_timings(sc, fields, sph_centers, target, sph_radii, size, views))
-    for batch, (fv, planes, _) in fast_rows.items():
-        rec_f, box_f = raster_cuda.prepass_fast(planes=planes)
-        timings[f"raster_fast_ms_B{batch}"] = time_ms(
-            lambda: raster_cuda.launch_raster_fast(rec_f, box_f, samples, samples), REPS)
-        timings[f"plain_raster_fast_ms_B{batch}"] = time_ms(
-            lambda: raster_cuda.raster_fast_plain(rec_f, box_f, samples, samples),
-            PLAIN_REPS if batch == MAIN_BATCH else 2, warmup=1)
-        n = samples.numel()
-        timings[f"raster_fast_bound_B{batch}"] = bound(
-            4 * (rec_f.numel() + box_f.numel() + 2 * n + batch * n * n),
-            face_sample_tests(box_f, samples, samples) * FAST_OPS_PER_TEST)
-    log(f"[10d] N={n_img} J={num_j} S={size}; raster at 128 x 128 samples: "
-        + json.dumps(timings))
+    fast_shapes = {f"B{b}": (planes, samples) for b, planes in fast_rows.items()}
+    fast_shapes[f"B{CANVAS_BATCH}_canvas{CANVAS}"] = (canvas_planes, canvas)
+    for key, (planes, grid) in fast_shapes.items():
+        batch, num_faces = planes[0].shape[0], planes[0].shape[1] // 3
+        timings[f"raster_fast_ms_{key}"] = time_ms(
+            lambda: raster_cuda.launch_raster_fast(planes, grid, grid), REPS)
+        if grid is samples:
+            timings[f"plain_raster_fast_ms_{key}"] = time_ms(
+                lambda: raster_cuda.raster_fast_plain(
+                    *raster_cuda.prepass_fast(planes=planes), grid, grid),
+                PLAIN_REPS if batch == MAIN_BATCH else 2, warmup=1)
+        # the planes, both sample vectors and the raw canvas once; the face
+        # setups and face-sample tests these hands need
+        _, box_f = raster_cuda.prepass_fast(planes=planes)
+        timings[f"raster_fast_bound_{key}"], timings[f"raster_fast_counts_{key}"] = ztile_bound(
+            box_f, grid, grid, batch * grid.numel() ** 2, ZTILE_FAST_OPS)
+        tiles_x, tiles_y = raster_cuda.ztiles(grid.numel(), grid.numel())
+        if raster_cuda.bins_faces(grid.numel(), grid.numel()):
+            timings[f"raster_fast_scratch_bytes_{key}"] = 4 * batch * tiles_x * tiles_y * (
+                num_faces + 1)
+    log(f"[10d] N={n_img} J={num_j} S={size}; raster_fast on 128 x 128 samples and the "
+        f"{CANVAS} x {CANVAS} canvas: " + json.dumps(timings))
     for fields in (sc.DEPTH, sc.DIST):
         kernel_rows += sphere_rows(sc, fields, timings, field_stats[(f"hands N={n_img}", fields)],
                                    field_launches)
@@ -791,10 +917,14 @@ def main() -> int:
     kernel_rows.append({
         "name": "raster_fast", "route": "cuda", "source": "spherehand_torch/csrc/raster.cu",
         "replaces": "spherehand_tpu/render/raster_pallas.py:524", "launches": fast_launches,
-        "max_abs_err": fast_rows[MAIN_BATCH][2], "ms": timings[f"raster_fast_ms_B{MAIN_BATCH}"],
+        "max_abs_err": fast_err[MAIN_BATCH], "ms": timings[f"raster_fast_ms_B{MAIN_BATCH}"],
         "plain_ms": timings[f"plain_raster_fast_ms_B{MAIN_BATCH}"], "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": None,
     })
+
+    # --------------------------------------------------------------- 11
+    launch_limits(raster_cuda, sphere_cuda, hand_planes, samples, sph_centers, sph_target,
+                  sph_radii, size, num_views)
 
     print(json.dumps({"kernels": kernel_rows}))
     print(smi)

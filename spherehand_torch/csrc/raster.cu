@@ -14,65 +14,77 @@
 //       barycentrics with IEEE division, NaN = uncovered, raw (B, Sy, Sx)
 //       buffer with background 1000.
 //   raster_fast         <- _raster_kernel_fast (raster_pallas.py:524)
-//       the fast coverage and depth (fast_cover) at any sample grid, one
-//       sample a thread, raw (B, Sy, Sx) buffer with background 1000, no
-//       pooling. It reads the records and face boxes of the PyTorch
-//       pre-pass (render/raster_cuda.py: 9 floats and a box a face).
+//       the fast coverage and depth of raster_fast_pooled at any ascending
+//       sample grid, raw (B, Sy, Sx) buffer with background 1000, no
+//       pooling.
 //
-// The two main-path kernels, raster_fast_pooled and raster_exact, read the
-// projected planes (u, v, z), each (B, 3F) in face-vertex order, and build
-// every face's setup themselves: the vertex sort by x with the reference
-// tie ladder, the back-face cull, the degenerate test, the box (fast: the
-// vertex box grown by kBoxMargin; exact: the column span [ceil(p0x),
-// trunc(min(p2x, W-1))] by the vertex y range +-1, unbounded in y where C
-// truncation paints column 0 from right of p2x) and, for the faces that
-// reach the block's tile, the record the plain pre-pass would build. Every
-// expression keeps the plain pre-pass's order.
+// All three are modes of one z-tile body. They read the projected planes
+// (u, v, z), each (B, 3F) in face-vertex order, and build every face's
+// setup themselves: the vertex sort by x with the reference tie ladder, the
+// back-face cull, the degenerate test, the box (fast: the vertex box grown
+// by kBoxMargin; exact: the column span [ceil(p0x), trunc(min(p2x, W-1))]
+// by the vertex y range +-1, unbounded in y where C truncation paints
+// column 0 from right of p2x) and, for the faces that reach the block's
+// tile, the record the plain pre-pass would build. Every expression keeps
+// the plain pre-pass's order.
 //
-// Design of the two. One block of 512 threads per (image, z-tile of 64 x 64
-// samples). The tile's depths live in shared memory as order-preserving
-// integer keys (depth_key), initialised to the background.
-//   Scan: the block walks the face list in rounds of 1,024 faces, two a
-//   thread with their loads in flight together; it sets each face up, tests
-//   its box against the tile's sample range, and a ballot compacts the
-//   faces that reach the tile into a queue of face indices.
-//   Drain, once 512 faces are queued (or the list ends), 512 at a time:
-//   each thread builds one queued face's record into shared memory and, by
-//   binary search over the tile's sorted sample coordinates, the samples its
-//   box holds; a block prefix sum over the faces' work items (fast: one a
-//   box sample; exact: one a span column, which computes the two polyline
-//   edges and the row span once, then walks the rows inside it) spreads the
-//   items over all threads, so no thread walks a large face alone. Each
-//   covered sample folds its depth into the tile with a shared-memory
-//   atomicMin on its key.
-//   Epilogue: the tile, pooled (fast) or raw (exact), to device memory.
+// Design. One block of 512 threads per (image, z-tile of 64 x 64 samples),
+// all in gridDim.x. The tile's depths live in shared memory as
+// order-preserving integer keys (depth_key), initialised to the background.
+//   Face list. raster_fast_pooled and raster_exact scan: the block walks all
+//   F faces of its image in rounds of 1,024, two a thread with their loads
+//   in flight together; it sets each face up, tests its box against the
+//   tile's sample range, and a ballot compacts the faces that reach the tile
+//   into a queue. raster_fast takes its list from a binning pass instead
+//   (up to raster_cuda.BIN_MAX_TILES tiles an image; it scans beyond): one
+//   thread a face sets each face up once, finds the z-tiles whose sample
+//   range its box meets, and appends the face to those tiles' lists (a
+//   count and F entries a tile of int32 scratch); each block then drains
+//   its own list. Scanning, every tile sets up every face of its image
+//   again, 100 times a face on the 640 x 640 canvas, where most tiles hold
+//   no face at all.
+//   Drain, 512 faces at a time: each thread builds one listed face's record
+//   into shared memory and, by binary search over the tile's sorted sample
+//   coordinates, the samples its box holds; a block prefix sum over the
+//   faces' work items (fast: one a box sample; exact: one a span column,
+//   which computes the two polyline edges and the row span once, then walks
+//   the rows inside it) spreads the items over all threads, so no thread
+//   walks a large face alone: item w to thread w mod 512, each looking its
+//   face up by binary search. raster_fast, where a round's faces hold 32
+//   samples or more on average (the canvas: a few hundred a face), gives
+//   each thread one contiguous run of items instead and walks it face by
+//   face with the record in registers (fast_walk). Each covered sample folds
+//   its depth into the tile with a shared-memory atomicMin on its key.
+//   Epilogue: the tile, pooled or raw, to device memory.
 //
 // Why faces over threads. A hand face covers a few samples of the 128 x 128
-// grid. Giving each thread a sample and walking every staged face past it
-// (as raster_fast does) makes a warp pay the whole coverage test for the one
-// or two lanes inside the face; here only the samples a face's box holds
-// are tested. A min is order-free, so the result does not depend on
-// scheduling: two launches, and any face order, give the same bits. The one
-// exception is the sign of zero: the key orders -0 below +0, so a sample
-// that both reach keeps -0; the two are equal as depths.
+// grid. Giving each thread a sample and walking every face past it (the
+// first raster_fast design) makes a warp pay the whole coverage test for
+// the one or two lanes inside the face; here only the samples a face's box
+// holds are tested. A min is order-free, so the result depends neither on scheduling
+// nor on the order of a bin's list: two launches, and any face order, give
+// the same bits. The one exception is the sign of zero: the key orders -0
+// below +0, so a sample that both reach keeps -0; the two are equal as
+// depths.
 //
-// Why 64 x 64 samples and 512 threads. Every block scans all F faces of its
-// image from L2 (24 bytes a face for the cull), so a larger tile reads the
-// planes fewer times (4 tiles an image against 16 of 32 x 32), and at large
-// batches, where the card is full, that wins. At the small batches of
-// training (B = 25 a view of the real batch, 48 synthetic) a launch is as
-// long as its slowest block, the tile that holds most of the hand (about
-// three times the mean faces, five times the mean samples); 512 threads give
-// that block twice the warps of 256 to hide its latency. The trade-off is
-// measured by python -m spherehand_torch.raster_sweep.
+// Why 64 x 64 samples and 512 threads. A scanning block reads all F faces
+// of its image from L2 (24 bytes a face for the cull), so a larger tile
+// reads the planes fewer times (4 tiles an image against 16 of 32 x 32),
+// and at large batches, where the card is full, that wins. At the small
+// batches of training (B = 25 a view of the real batch, 48 synthetic) a
+// launch is as long as its slowest block, the tile that holds most of the
+// hand (about three times the mean faces, five times the mean samples); 512
+// threads give that block twice the warps of 256 to hide its latency. The
+// trade-off is measured by python -m spherehand_torch.raster_sweep; scan
+// against bins, and each kernel against another build, by python -m
+// spherehand_torch.raster_ab.
 //
 // What bounds them on this card: the least time is set by the bytes (36
 // bytes a face of planes, the canvas: tens of MB at B = 1024 against 3.35
 // TB/s); the coverage tests and face setups cost less against 67 TFLOP/s
 // float32. What the design spends instead is latency: each block's scan and
-// drain rounds wait on L2 and on the block's barriers, the hand's heaviest
-// tile sets a small launch's time, and every tile sets up every face of its
-// image again. A per-image binning pass would take the repeated setups out.
+// drain rounds wait on L2 and on the block's barriers, and the hand's
+// heaviest tile sets a small launch's time.
 //
 // Numerics. Built with -fmad=false and without fast math: every product and
 // sum rounds on its own, divisions are IEEE, so span bounds (ceilf/truncf)
@@ -84,172 +96,12 @@
 
 namespace {
 
-constexpr int kTileW = 32;
-constexpr int kTileH = 8;
-constexpr int kThreads = kTileW * kTileH;
-constexpr int kWarps = kThreads / 32;
-constexpr int kFieldsFast = 9;
 constexpr float kBackground = 1000.0f;
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float warp_min(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-// Block-wide range of the samples the block's threads own. range[0..3] =
-// x_lo, x_hi, y_lo, y_hi. Threads without samples pass +inf / -inf.
-__device__ void block_range(float x_lo, float x_hi, float y_lo, float y_hi,
-                            float (*s_part)[kWarps], float* range) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  x_lo = warp_min(x_lo);
-  x_hi = warp_max(x_hi);
-  y_lo = warp_min(y_lo);
-  y_hi = warp_max(y_hi);
-  if (lane == 0) {
-    s_part[0][warp] = x_lo;
-    s_part[1][warp] = x_hi;
-    s_part[2][warp] = y_lo;
-    s_part[3][warp] = y_hi;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float r0 = INFINITY, r1 = -INFINITY, r2 = INFINITY, r3 = -INFINITY;
-    for (int w = 0; w < kWarps; ++w) {
-      r0 = fminf(r0, s_part[0][w]);
-      r1 = fmaxf(r1, s_part[1][w]);
-      r2 = fminf(r2, s_part[2][w]);
-      r3 = fmaxf(r3, s_part[3][w]);
-    }
-    range[0] = r0;
-    range[1] = r1;
-    range[2] = r2;
-    range[3] = r3;
-  }
-  __syncthreads();
-}
-
-// Stage the faces [base, base + kThreads) whose box meets the tile range:
-// their boxes into s_box[0..n) and their records field-major into
-// s_rec[k * kThreads + slot]. Returns n, the same in every thread. The
-// caller syncs before it stages the next chunk.
-template <int kFields>
-__device__ int stage_faces(const float* __restrict__ rec, const float4* __restrict__ box,
-                           int base, int num_faces, const float* range,
-                           float* s_rec, float4* s_box, int* s_count) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int f = base + tid;
-  bool hit = false;
-  float4 bd = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (f < num_faces) {
-    bd = box[f];
-    hit = bd.y >= range[0] && bd.x <= range[1] && bd.w >= range[2] && bd.z <= range[3];
-  }
-  const unsigned mask = __ballot_sync(kFull, hit);
-  if (lane == 0) s_count[warp] = __popc(mask);
-  __syncthreads();
-  int offset = 0, total = 0;
-  for (int w = 0; w < kWarps; ++w) {
-    const int c = s_count[w];
-    offset += (w < warp) ? c : 0;
-    total += c;
-  }
-  if (hit) {
-    const int slot = offset + __popc(mask & ((1u << lane) - 1u));
-    s_box[slot] = bd;
-    const float* r = rec + (size_t)f * kFields;
-#pragma unroll
-    for (int k = 0; k < kFields; ++k) s_rec[k * kThreads + slot] = r[k];
-  }
-  __syncthreads();
-  return total;
-}
 
 __device__ __forceinline__ float clamp01(float w) {
   // NaN passes through, as torch.clamp and jnp.clip do.
   return w < 0.0f ? 0.0f : (w > 1.0f ? 1.0f : w);
-}
-
-// One staged fast face: its record and box, read from shared memory once
-// for all the samples a thread owns.
-struct FastFace {
-  float a0, b0, c0, a1, b1, c1, aq, bq, cq;
-  float4 box;
-};
-
-__device__ __forceinline__ FastFace load_fast_face(const float* s_rec, const float4* s_box,
-                                                   int k) {
-  FastFace f;
-  f.a0 = s_rec[0 * kThreads + k];
-  f.b0 = s_rec[1 * kThreads + k];
-  f.c0 = s_rec[2 * kThreads + k];
-  f.a1 = s_rec[3 * kThreads + k];
-  f.b1 = s_rec[4 * kThreads + k];
-  f.c1 = s_rec[5 * kThreads + k];
-  f.aq = s_rec[6 * kThreads + k];
-  f.bq = s_rec[7 * kThreads + k];
-  f.cq = s_rec[8 * kThreads + k];
-  f.box = s_box[k];
-  return f;
-}
-
-// Fast-mode coverage of sample (x, y) by face f: inside the face box and all
-// three raw barycentrics >= 0; a covered sample keeps min(z, 1/q) (fminf
-// drops a NaN depth).
-__device__ __forceinline__ void fast_cover(const FastFace& f, float x, float y, float& z) {
-  if (!(x >= f.box.x && x <= f.box.y && y >= f.box.z && y <= f.box.w)) return;
-  const float w0 = f.a0 * x + f.b0 * y + f.c0;
-  const float w1 = f.a1 * x + f.b1 * y + f.c1;
-  const float w2 = 1.0f - w0 - w1;
-  if (w0 >= 0.0f && w1 >= 0.0f && w2 >= 0.0f) z = fminf(z, 1.0f / (f.aq * x + f.bq * y + f.cq));
-}
-
-// Thread (col, row) of the tile owns sample (j, i) at (sx[i], sy[j]).
-__global__ void __launch_bounds__(kThreads)
-raster_fast_kernel(const float* __restrict__ records, const float4* __restrict__ boxes,
-                   const float* __restrict__ sample_x, const float* __restrict__ sample_y,
-                   float* __restrict__ out, int num_faces, int sx_n, int sy_n) {
-  __shared__ float s_rec[kFieldsFast * kThreads];
-  __shared__ float4 s_box[kThreads];
-  __shared__ int s_count[kWarps];
-  __shared__ float s_part[4][kWarps];
-  __shared__ float s_range[4];
-
-  const int b = blockIdx.z;
-  const int i = blockIdx.x * kTileW + (threadIdx.x & 31);
-  const int j = blockIdx.y * kTileH + (threadIdx.x >> 5);
-  const bool col_ok = i < sx_n, row_ok = j < sy_n;  // row_ok is warp-uniform
-  const float x = col_ok ? sample_x[i] : 0.0f;
-  const float y = row_ok ? sample_y[j] : 0.0f;  // same in the warp
-  const bool own = col_ok && row_ok;
-  block_range(own ? x : INFINITY, own ? x : -INFINITY, own ? y : INFINITY,
-              own ? y : -INFINITY, s_part, s_range);
-
-  const float* rec = records + (size_t)b * num_faces * kFieldsFast;
-  const float4* box = boxes + (size_t)b * num_faces;
-  float z = kBackground;
-
-  for (int base = 0; base < num_faces; base += kThreads) {
-    const int n = stage_faces<kFieldsFast>(rec, box, base, num_faces, s_range, s_rec, s_box,
-                                           s_count);
-    if (row_ok) {
-      for (int k = 0; k < n; ++k) {
-        if (s_box[k].w < y || s_box[k].z > y) continue;  // warp-uniform row test
-        fast_cover(load_fast_face(s_rec, s_box, k), x, y, z);
-      }
-    }
-    __syncthreads();
-  }
-  if (own) out[((size_t)b * sy_n + j) * sx_n + i] = z;
-}
-
-dim3 grid_for(int w, int h, int batch) {
-  return dim3((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH, batch);
 }
 
 // ------------------------------------------------- z-tile kernels (planes)
@@ -263,6 +115,9 @@ constexpr int kDrain = kZThreads;               // queued faces that start a dra
 constexpr int kQueue = kDrain + kChunk;         // < kDrain left over + one round
 constexpr int kBatch = kZThreads;               // records a drain round builds, one a thread
 constexpr float kBoxMargin = 1.0f;       // raster_cuda.BOX_MARGIN
+// Mean box samples a face from which raster_fast's drain walks contiguous
+// runs of items (fast_walk) instead of spreading them strided.
+constexpr int kWalkItems = 32;
 
 // Order-preserving key of a float depth: a < b as floats iff key(a) <
 // key(b) as unsigned integers, for every value but NaN (which never reaches
@@ -544,38 +399,140 @@ __device__ __forceinline__ int last_at_most(const int* a, int n, int v) {
   return lo;
 }
 
-// The shared body of both z-tile kernels: stage the tile's sample
-// coordinates, clear the z-tile to the background, then scan the faces of
-// image blockIdx.z and fold every covered sample of tile (blockIdx.x,
-// blockIdx.y) into s_z. Ends synchronised. Needs kRec * kBatch floats of
-// dynamic shared memory for the records.
-template <bool kExact>
-__device__ void fill_ztile(const float* __restrict__ u_plane, const float* __restrict__ v_plane,
-                           const float* __restrict__ z_plane,
-                           const float* __restrict__ sample_x, const float* __restrict__ sample_y,
-                           int num_faces, int sx_n, int sy_n, float width, float height,
-                           unsigned* s_z, float* s_sx, float* s_sy, int& nx, int& ny) {
-  extern __shared__ float s_rec[];           // a drain round's records, field-major
-  __shared__ int s_face[kQueue];             // queued faces
-  __shared__ int s_ranges[kBatch];           // a drain round's packed sample ranges
-  __shared__ int s_start[kBatch];            // and first work items
-  __shared__ int s_count[kPerThread * kZWarps];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int i0 = blockIdx.x * kZTile, j0 = blockIdx.y * kZTile;
-  nx = min(kZTile, sx_n - i0);
-  ny = min(kZTile, sy_n - j0);
+// Fast mode, the work items [w, end) of one thread, contiguous: a binary
+// search over the drain round's first items (s_start, n faces, `items` in
+// all) finds the face of the first; the thread then walks its face's box
+// samples row by row, with the record in registers, and steps to the next
+// face with items. The strided spread (fast_sample) searches for every
+// item and reads the record again; both compute each sample as fast_sample
+// does.
+__device__ void fast_walk(int w, int end, const int* s_start, int n, int items,
+                          const float* s_rec, const int* s_ranges, const float* s_sx,
+                          const float* s_sy, unsigned* s_z) {
+  if (w >= end) return;
+  int k = last_at_most(s_start, n, w);
+  while (true) {
+    const float* rec = s_rec + k;
+    const float a0 = rec[0 * kBatch], b0 = rec[1 * kBatch], c0 = rec[2 * kBatch];
+    const float a1 = rec[3 * kBatch], b1 = rec[4 * kBatch], c1 = rec[5 * kBatch];
+    const float aq = rec[6 * kBatch], bq = rec[7 * kBatch], cq = rec[8 * kBatch];
+    const int ranges = s_ranges[k];
+    const int ilo = ranges & 0xff, ihi = (ranges >> 8) & 0xff;
+    const int off = w - s_start[k];
+    int j = ((ranges >> 16) & 0xff) + off / (ihi - ilo), i = ilo + off % (ihi - ilo);
+    const int stop = min(end, k + 1 < n ? s_start[k + 1] : items);
+    for (; w < stop; ++w) {
+      const float x = s_sx[i], y = s_sy[j];
+      const float w0 = a0 * x + b0 * y + c0;
+      const float w1 = a1 * x + b1 * y + c1;
+      const float w2 = 1.0f - w0 - w1;
+      if (w0 >= 0.0f && w1 >= 0.0f && w2 >= 0.0f) {
+        const float depth = 1.0f / (aq * x + bq * y + cq);
+        if (!isnan(depth)) atomicMin(&s_z[j * kZTile + i], depth_key(depth));
+      }
+      if (++i == ihi) {
+        i = ilo;
+        ++j;
+      }
+    }
+    if (w >= end) return;
+    ++k;  // the next face with items: the last whose first item is <= w
+    while (k + 1 < n && s_start[k + 1] <= w) ++k;
+  }
+}
+
+// The (image, z-tile) a block owns. A z-tile launch puts all its blocks in
+// gridDim.x, whose limit is 2^31 - 1 (gridDim.z stops at 65,535 images):
+// image-major, the tiles of an image row by row, so block k is also slot k
+// of the binning pass's lists.
+struct ZTile {
+  int b, i0, j0;  // image, first sample column, first sample row
+};
+
+__device__ __forceinline__ ZTile ztile_of_block(int sx_n, int sy_n) {
+  const unsigned tiles_x = (sx_n + kZTile - 1) / kZTile;
+  const unsigned per_image = tiles_x * ((sy_n + kZTile - 1) / kZTile);
+  const unsigned t = blockIdx.x % per_image;
+  return {(int)(blockIdx.x / per_image), (int)(t % tiles_x) * kZTile,
+          (int)(t / tiles_x) * kZTile};
+}
+
+// Stage tile t's sample coordinates and clear its z-tile to the background;
+// nx, ny are the tile's sample columns and rows. Ends synchronised.
+__device__ void begin_ztile(const ZTile& t, const float* __restrict__ sample_x,
+                            const float* __restrict__ sample_y, int sx_n, int sy_n,
+                            unsigned* s_z, float* s_sx, float* s_sy, int& nx, int& ny) {
+  const int tid = threadIdx.x;
+  nx = min(kZTile, sx_n - t.i0);
+  ny = min(kZTile, sy_n - t.j0);
   const unsigned background = depth_key(kBackground);
   for (int k = tid; k < kZTile * kZTile; k += kZThreads) s_z[k] = background;
-  if (tid < nx) s_sx[tid] = sample_x[i0 + tid];
-  if (tid >= kZTile && tid - kZTile < ny) s_sy[tid - kZTile] = sample_y[j0 + tid - kZTile];
+  if (tid < nx) s_sx[tid] = sample_x[t.i0 + tid];
+  if (tid >= kZTile && tid - kZTile < ny) s_sy[tid - kZTile] = sample_y[t.j0 + tid - kZTile];
   __syncthreads();
-  const float tx_lo = s_sx[0], tx_hi = s_sx[nx - 1], ty_lo = s_sy[0], ty_hi = s_sy[ny - 1];
-  const float y_cap = height - 1.0f;
+}
 
-  const size_t plane = (size_t)blockIdx.z * 3 * num_faces;
-  const float* u = u_plane + plane;
-  const float* v = v_plane + plane;
-  const float* z = z_plane + plane;
+// Fold the `count` faces listed at `faces` (shared or device memory) into
+// s_z, kBatch a round: each face's record and work items, one face a
+// thread; then the items of all of them spread over the block, strided
+// (item w to thread w % kZThreads) or, with kWalk (fast mode) in a round
+// whose faces hold kWalkItems samples or more on average, one contiguous
+// run a thread (fast_walk). Needs kRec * kBatch floats of dynamic shared
+// memory for the records. Ends synchronised.
+template <bool kExact, bool kWalk = false>
+__device__ __forceinline__ void drain_faces(const int* faces, int count,
+                                            const float* __restrict__ u,
+                                            const float* __restrict__ v,
+                                            const float* __restrict__ z, int nx, int ny,
+                                            float width, float y_cap, const float* s_sx,
+                                            const float* s_sy, unsigned* s_z) {
+  extern __shared__ float s_rec[];   // a drain round's records, field-major
+  __shared__ int s_ranges[kBatch];   // a drain round's packed sample ranges
+  __shared__ int s_start[kBatch];    // and first work items
+  __shared__ int s_warp[kZWarps];
+  const int tid = threadIdx.x;
+  for (int first = 0; first < count; first += kBatch) {
+    const int n = min(kBatch, count - first);
+    if (tid < n) {
+      int ranges;
+      s_start[tid] = kExact ? build_exact(u, v, z, faces[first + tid], nx, ny, width, s_sx, s_sy,
+                                          s_rec + tid, ranges)
+                            : build_fast(u, v, z, faces[first + tid], nx, ny, s_sx, s_sy,
+                                         s_rec + tid, ranges);
+      s_ranges[tid] = ranges;
+    }
+    __syncthreads();
+    const int items = block_exclusive_scan(s_start, n, s_warp);
+    if (kWalk && items >= kWalkItems * n) {
+      const int per = (items + kZThreads - 1) / kZThreads;
+      fast_walk(tid * per, min(items, (tid + 1) * per), s_start, n, items, s_rec, s_ranges, s_sx,
+                s_sy, s_z);
+    } else {
+      for (int w = tid; w < items; w += kZThreads) {
+        const int k = last_at_most(s_start, n, w);
+        if constexpr (kExact) {
+          exact_column(s_rec + k, s_ranges[k], w - s_start[k], ny, y_cap, s_sx, s_sy, s_z);
+        } else {
+          fast_sample(s_rec + k, s_ranges[k], w - s_start[k], s_sx, s_sy, s_z);
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The scan of the z-tile kernels: walk all F faces of the image (planes u,
+// v, z), queue those whose box meets the tile's sample range, and drain the
+// queue whenever kDrain faces wait (or the list ends). Ends synchronised.
+template <bool kExact, bool kWalk = false>
+__device__ void scan_ztile(const float* __restrict__ u, const float* __restrict__ v,
+                           const float* __restrict__ z, int num_faces, int nx, int ny,
+                           float width, float height, const float* s_sx, const float* s_sy,
+                           unsigned* s_z) {
+  __shared__ int s_face[kQueue];  // queued faces
+  __shared__ int s_count[kPerThread * kZWarps];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float tx_lo = s_sx[0], tx_hi = s_sx[nx - 1], ty_lo = s_sy[0], ty_hi = s_sy[ny - 1];
   int queued = 0;  // the same in every thread
   for (int base = 0; base < num_faces; base += kChunk) {
     // Scan round: kPerThread faces a thread, their loads in flight together.
@@ -611,48 +568,40 @@ __device__ void fill_ztile(const float* __restrict__ u_plane, const float* __res
     queued += total;
     __syncthreads();
     if (queued < kDrain && base + kChunk < num_faces) continue;
-    // Drain, kBatch faces a round: each face's record and work items, one
-    // face a thread; then the items of all of them spread over the block.
-    for (int first = 0; first < queued; first += kBatch) {
-      const int n = min(kBatch, queued - first);
-      if (tid < n) {
-        int ranges;
-        s_start[tid] = kExact ? build_exact(u, v, z, s_face[first + tid], nx, ny, width, s_sx,
-                                            s_sy, s_rec + tid, ranges)
-                              : build_fast(u, v, z, s_face[first + tid], nx, ny, s_sx, s_sy,
-                                           s_rec + tid, ranges);
-        s_ranges[tid] = ranges;
-      }
-      __syncthreads();
-      const int items = block_exclusive_scan(s_start, n, s_count);
-      for (int w = tid; w < items; w += kZThreads) {
-        const int k = last_at_most(s_start, n, w);
-        if constexpr (kExact) {
-          exact_column(s_rec + k, s_ranges[k], w - s_start[k], ny, y_cap, s_sx, s_sy, s_z);
-        } else {
-          fast_sample(s_rec + k, s_ranges[k], w - s_start[k], s_sx, s_sy, s_z);
-        }
-      }
-      __syncthreads();
-    }
+    drain_faces<kExact, kWalk>(s_face, queued, u, v, z, nx, ny, width, height - 1.0f, s_sx,
+                               s_sy, s_z);
     queued = 0;
+  }
+}
+
+// Write tile t of s_z to the raw (B, Sy, Sx) canvas as depths.
+__device__ __forceinline__ void write_raw(const ZTile& t, const unsigned* s_z, int nx, int ny,
+                                          int sx_n, int sy_n, float* __restrict__ out) {
+  for (int k = threadIdx.x; k < kZTile * kZTile; k += kZThreads) {
+    const int ly = k / kZTile, lx = k % kZTile;
+    if (lx < nx && ly < ny) {
+      out[((size_t)t.b * sy_n + t.j0 + ly) * sx_n + t.i0 + lx] = key_depth(s_z[k]);
+    }
   }
 }
 
 // Planes (B, 3F) each, sample grid (2W,) x (2H,) sorted ascending ->
 // pooled (B, H, W): each output pixel reads its four samples from the tile.
 __global__ void __launch_bounds__(kZThreads)
-raster_fast_pooled_kernel(const float* __restrict__ u, const float* __restrict__ v,
-                          const float* __restrict__ z, const float* __restrict__ sample_x,
+raster_fast_pooled_kernel(const float* __restrict__ u_plane, const float* __restrict__ v_plane,
+                          const float* __restrict__ z_plane, const float* __restrict__ sample_x,
                           const float* __restrict__ sample_y, float* __restrict__ out,
                           int num_faces, int out_w, int out_h, float pool_clamp) {
   __shared__ unsigned s_z[kZTile * kZTile];
   __shared__ float s_sx[kZTile], s_sy[kZTile];
+  const ZTile t = ztile_of_block(2 * out_w, 2 * out_h);
   int nx, ny;
-  fill_ztile<false>(u, v, z, sample_x, sample_y, num_faces, 2 * out_w, 2 * out_h, 0.0f, 0.0f,
-                    s_z, s_sx, s_sy, nx, ny);
+  begin_ztile(t, sample_x, sample_y, 2 * out_w, 2 * out_h, s_z, s_sx, s_sy, nx, ny);
+  const size_t plane = (size_t)t.b * 3 * num_faces;
+  scan_ztile<false>(u_plane + plane, v_plane + plane, z_plane + plane, num_faces, nx, ny, 0.0f,
+                    0.0f, s_sx, s_sy, s_z);
   constexpr int kHalf = kZTile / 2;
-  const int ox0 = blockIdx.x * kHalf, oy0 = blockIdx.y * kHalf;
+  const int ox0 = t.i0 / 2, oy0 = t.j0 / 2;
   for (int k = threadIdx.x; k < kHalf * kHalf; k += kZThreads) {
     const int ly = k / kHalf, lx = k % kHalf;
     if (2 * lx >= nx || 2 * ly >= ny) continue;
@@ -662,34 +611,147 @@ raster_fast_pooled_kernel(const float* __restrict__ u, const float* __restrict__
     const float t1 = fminf(key_depth(row0[1]), pool_clamp);
     const float t2 = fminf(key_depth(row1[0]), pool_clamp);
     const float t3 = fminf(key_depth(row1[1]), pool_clamp);
-    out[((size_t)blockIdx.z * out_h + oy0 + ly) * out_w + ox0 + lx] =
-        ((t0 + t1) + (t2 + t3)) * 0.25f;
+    out[((size_t)t.b * out_h + oy0 + ly) * out_w + ox0 + lx] = ((t0 + t1) + (t2 + t3)) * 0.25f;
   }
 }
 
 // Planes (B, 3F) each, sample grid (Sx,) x (Sy,) sorted ascending -> raw
 // (B, Sy, Sx), background 1000.
 __global__ void __launch_bounds__(kZThreads)
-raster_exact_kernel(const float* __restrict__ u, const float* __restrict__ v,
-                    const float* __restrict__ z, const float* __restrict__ sample_x,
+raster_exact_kernel(const float* __restrict__ u_plane, const float* __restrict__ v_plane,
+                    const float* __restrict__ z_plane, const float* __restrict__ sample_x,
                     const float* __restrict__ sample_y, float* __restrict__ out, int num_faces,
                     int sx_n, int sy_n, float width, float height) {
   __shared__ unsigned s_z[kZTile * kZTile];
   __shared__ float s_sx[kZTile], s_sy[kZTile];
+  const ZTile t = ztile_of_block(sx_n, sy_n);
   int nx, ny;
-  fill_ztile<true>(u, v, z, sample_x, sample_y, num_faces, sx_n, sy_n, width, height, s_z, s_sx,
-                   s_sy, nx, ny);
-  const int i0 = blockIdx.x * kZTile, j0 = blockIdx.y * kZTile;
-  for (int k = threadIdx.x; k < kZTile * kZTile; k += kZThreads) {
-    const int ly = k / kZTile, lx = k % kZTile;
-    if (lx < nx && ly < ny) {
-      out[((size_t)blockIdx.z * sy_n + j0 + ly) * sx_n + i0 + lx] = key_depth(s_z[k]);
+  begin_ztile(t, sample_x, sample_y, sx_n, sy_n, s_z, s_sx, s_sy, nx, ny);
+  const size_t plane = (size_t)t.b * 3 * num_faces;
+  scan_ztile<true>(u_plane + plane, v_plane + plane, z_plane + plane, num_faces, nx, ny, width,
+                   height, s_sx, s_sy, s_z);
+  write_raw(t, s_z, nx, ny, sx_n, sy_n, out);
+}
+
+// Planes (B, 3F) each, sample grid (Sx,) x (Sy,) sorted ascending -> raw
+// (B, Sy, Sx), background 1000, by the fast rule. kBinned: the block drains
+// its own tile's list (lists + blockIdx.x * F, counts[blockIdx.x] faces, as
+// bin_faces_kernel built it); else it scans all F faces of its image, as
+// raster_fast_pooled does.
+template <bool kBinned>
+__global__ void __launch_bounds__(kZThreads)
+raster_fast_kernel(const float* __restrict__ u_plane, const float* __restrict__ v_plane,
+                   const float* __restrict__ z_plane, const float* __restrict__ sample_x,
+                   const float* __restrict__ sample_y, float* __restrict__ out,
+                   const int* __restrict__ counts, const int* __restrict__ lists, int num_faces,
+                   int sx_n, int sy_n) {
+  __shared__ unsigned s_z[kZTile * kZTile];
+  __shared__ float s_sx[kZTile], s_sy[kZTile];
+  const ZTile t = ztile_of_block(sx_n, sy_n);
+  int nx, ny;
+  begin_ztile(t, sample_x, sample_y, sx_n, sy_n, s_z, s_sx, s_sy, nx, ny);
+  const size_t plane = (size_t)t.b * 3 * num_faces;
+  const float *u = u_plane + plane, *v = v_plane + plane, *z = z_plane + plane;
+  if constexpr (kBinned) {
+    drain_faces<false, true>(lists + (size_t)blockIdx.x * num_faces, counts[blockIdx.x], u, v, z,
+                             nx, ny, 0.0f, 0.0f, s_sx, s_sy, s_z);
+  } else {
+    scan_ztile<false, true>(u, v, z, num_faces, nx, ny, 0.0f, 0.0f, s_sx, s_sy, s_z);
+  }
+  write_raw(t, s_z, nx, ny, sx_n, sy_n, out);
+}
+
+constexpr int kBinThreads = 256;
+
+// The binning pass of raster_fast, one thread a face, a block kBinThreads
+// faces of one image: the face's setup as the z-tile kernels make it
+// (sort_face, the front-facing and non-degenerate test, face_box<false>);
+// the face's index goes into the list of every z-tile whose sample range
+// (first to last sample in x and in y, the scan's test) its box meets. A
+// box that falls between two samples of a tile lists the face there too;
+// its drain finds no samples. Each (image, tile) slot has room for F faces
+// (a face enters a tile once) and its count, zeroed before the pass, is the
+// list's length.
+//   Dynamic shared memory (bin_smem_bytes): the tiles' first and last
+// sample coordinates, where a binary search finds the tile columns [tx0,
+// tx1] and rows [ty0, ty1] a box meets, and two counters a tile of the
+// image. The block counts its faces a tile with shared atomics, reserves
+// each tile's run in the list with one device atomic, then writes its
+// faces into the runs. Device atomics a face, one a (warp, tile) even,
+// measured several times slower: their contention on an image's few
+// counters set the pass's time.
+//   The lists' order depends on scheduling; the z-min that drains them
+// does not.
+__global__ void __launch_bounds__(kBinThreads)
+bin_faces_kernel(const float* __restrict__ u_plane, const float* __restrict__ v_plane,
+                 const float* __restrict__ sample_x, const float* __restrict__ sample_y,
+                 int* __restrict__ counts, int* __restrict__ lists, int num_faces, int sx_n,
+                 int sy_n) {
+  extern __shared__ float s_bin[];
+  const int tid = threadIdx.x;
+  const unsigned chunks = (num_faces + kBinThreads - 1) / kBinThreads;
+  const int b = (int)(blockIdx.x / chunks);
+  const int face = (int)(blockIdx.x % chunks) * kBinThreads + tid;
+  const int tiles_x = (sx_n + kZTile - 1) / kZTile;
+  const int tiles_y = (sy_n + kZTile - 1) / kZTile;
+  const int per_image = tiles_x * tiles_y;
+  float* x_first = s_bin;
+  float* x_last = x_first + tiles_x;
+  float* y_first = x_last + tiles_x;
+  float* y_last = y_first + tiles_y;
+  int* s_count = reinterpret_cast<int*>(y_last + tiles_y);  // the block's faces a tile
+  int* s_next = s_count + per_image;                         // a tile's next list entry
+  for (int t = tid; t < tiles_x; t += kBinThreads) {
+    x_first[t] = sample_x[t * kZTile];
+    x_last[t] = sample_x[min(t * kZTile + kZTile - 1, sx_n - 1)];
+  }
+  for (int t = tid; t < tiles_y; t += kBinThreads) {
+    y_first[t] = sample_y[t * kZTile];
+    y_last[t] = sample_y[min(t * kZTile + kZTile - 1, sy_n - 1)];
+  }
+  for (int t = tid; t < per_image; t += kBinThreads) s_count[t] = 0;
+  __syncthreads();
+  int tx0 = 0, tx1 = -1, ty0 = 0, ty1 = -1;
+  if (face < num_faces) {
+    const size_t plane = (size_t)b * 3 * num_faces;
+    const Sorted s = sort_face(u_plane + plane, v_plane + plane, face);
+    if (s.valid) {
+      const Box bx = face_box<false>(s, 0.0f);
+      tx0 = lower_bound(x_last, tiles_x, bx.x0);
+      tx1 = upper_bound(x_first, tiles_x, bx.x1) - 1;
+      ty0 = lower_bound(y_last, tiles_y, bx.y0);
+      ty1 = upper_bound(y_first, tiles_y, bx.y1) - 1;
+    }
+  }
+  for (int ty = ty0; ty <= ty1; ++ty) {
+    for (int tx = tx0; tx <= tx1; ++tx) atomicAdd(&s_count[ty * tiles_x + tx], 1);
+  }
+  __syncthreads();
+  for (int t = tid; t < per_image; t += kBinThreads) {
+    const int c = s_count[t];
+    s_next[t] = c > 0 ? atomicAdd(&counts[b * per_image + t], c) : 0;
+  }
+  __syncthreads();
+  for (int ty = ty0; ty <= ty1; ++ty) {
+    for (int tx = tx0; tx <= tx1; ++tx) {
+      const int t = ty * tiles_x + tx;
+      lists[((size_t)b * per_image + t) * num_faces + atomicAdd(&s_next[t], 1)] = face;
     }
   }
 }
 
-dim3 ztile_grid(int sx_n, int sy_n, int batch) {
-  return dim3((sx_n + kZTile - 1) / kZTile, (sy_n + kZTile - 1) / kZTile, batch);
+// Dynamic shared memory of bin_faces_kernel over a (Sx,) x (Sy,) grid.
+size_t bin_smem_bytes(int sx_n, int sy_n) {
+  const size_t tiles_x = (sx_n + kZTile - 1) / kZTile, tiles_y = (sy_n + kZTile - 1) / kZTile;
+  return 2 * sizeof(float) * (tiles_x + tiles_y) + 2 * sizeof(int) * tiles_x * tiles_y;
+}
+
+// Blocks of a z-tile launch over a (Sx,) x (Sy,) sample grid, or -1 past
+// gridDim.x's limit.
+long long ztile_blocks(int sx_n, int sy_n, int batch) {
+  const long long blocks = (long long)((sx_n + kZTile - 1) / kZTile) *
+                           ((sy_n + kZTile - 1) / kZTile) * batch;
+  return blocks > 0x7fffffffLL ? -1 : blocks;
 }
 
 // Launch a z-tile kernel with its drain round's records (rec_fields floats
@@ -697,13 +759,14 @@ dim3 ztile_grid(int sx_n, int sy_n, int batch) {
 // static part, the exact kernel passes the 48 KB a block gets unasked.
 // Returns the launch's error.
 template <typename Kernel, typename... Args>
-cudaError_t launch_ztile(Kernel kernel, int rec_fields, dim3 grid, cudaStream_t stream,
+cudaError_t launch_ztile(Kernel kernel, int rec_fields, long long blocks, cudaStream_t stream,
                          Args... args) {
+  if (blocks < 0) return cudaErrorInvalidValue;
   const int bytes = rec_fields * kBatch * (int)sizeof(float);
   const cudaError_t opt_in =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (opt_in != cudaSuccess) return opt_in;
-  kernel<<<grid, kZThreads, bytes, stream>>>(args...);
+  kernel<<<(unsigned)blocks, kZThreads, bytes, stream>>>(args...);
   return cudaGetLastError();
 }
 
@@ -718,23 +781,43 @@ int shx_raster_fast_pooled(const float* u, const float* v, const float* z,
                            int num_faces, int out_w, int out_h, float pool_clamp, void* stream) {
   if (batch > 0 && out_w > 0 && out_h > 0) {
     return (int)launch_ztile(raster_fast_pooled_kernel, kRecFast,
-                             ztile_grid(2 * out_w, 2 * out_h, batch), (cudaStream_t)stream, u, v,
-                             z, sample_x, sample_y, out, num_faces, out_w, out_h, pool_clamp);
+                             ztile_blocks(2 * out_w, 2 * out_h, batch), (cudaStream_t)stream, u,
+                             v, z, sample_x, sample_y, out, num_faces, out_w, out_h, pool_clamp);
   }
   return (int)cudaGetLastError();
 }
 
-// records (B, F, 9), boxes (B, F, 4), sample_x (Sx,), sample_y (Sy,),
-// out (B, Sy, Sx). Returns cudaGetLastError() after the launch.
-int shx_raster_fast(const float* records, const float* boxes, const float* sample_x,
-                    const float* sample_y, float* out, int batch, int num_faces, int sx_n,
-                    int sy_n, void* stream) {
-  if (batch > 0 && sx_n > 0 && sy_n > 0) {
-    raster_fast_kernel<<<grid_for(sx_n, sy_n, batch), kThreads, 0, (cudaStream_t)stream>>>(
-        records, reinterpret_cast<const float4*>(boxes), sample_x, sample_y, out, num_faces,
-        sx_n, sy_n);
+// u, v, z planes (B, 3F) each, sample_x (Sx,), sample_y (Sy,) sorted
+// ascending, out (B, Sy, Sx). With scratch `counts` (B * T,) and `lists`
+// (B * T, F) int32, T the z-tiles of an image, the binning pass runs first
+// and each z-tile drains its own list; with lists == NULL each z-tile scans
+// all F faces of its image. Returns cudaGetLastError() after the launches.
+int shx_raster_fast(const float* u, const float* v, const float* z, const float* sample_x,
+                    const float* sample_y, float* out, int* counts, int* lists, int batch,
+                    int num_faces, int sx_n, int sy_n, void* stream) {
+  if (!(batch > 0 && sx_n > 0 && sy_n > 0)) return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  const long long blocks = ztile_blocks(sx_n, sy_n, batch);
+  if (lists == nullptr) {
+    return (int)launch_ztile(raster_fast_kernel<false>, kRecFast, blocks, s, u, v, z, sample_x,
+                             sample_y, out, (const int*)nullptr, (const int*)nullptr, num_faces,
+                             sx_n, sy_n);
   }
-  return (int)cudaGetLastError();
+  const long long bin_blocks = (long long)batch * ((num_faces + kBinThreads - 1) / kBinThreads);
+  if (blocks < 0 || bin_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaMemsetAsync(counts, 0, (size_t)blocks * sizeof(int), s);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = bin_smem_bytes(sx_n, sy_n);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;  // raster_cuda.BIN_MAX_TILES
+  if (bin_blocks > 0) {
+    bin_faces_kernel<<<(unsigned)bin_blocks, kBinThreads, smem, s>>>(
+        u, v, sample_x, sample_y, counts, lists, num_faces, sx_n, sy_n);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)launch_ztile(raster_fast_kernel<true>, kRecFast, blocks, s, u, v, z, sample_x,
+                           sample_y, out, (const int*)counts, (const int*)lists, num_faces, sx_n,
+                           sy_n);
 }
 
 // u, v, z planes (B, 3F) each, sample_x (Sx,), sample_y (Sy,) sorted
@@ -743,7 +826,7 @@ int shx_raster_exact(const float* u, const float* v, const float* z, const float
                      const float* sample_y, float* out, int batch, int num_faces, int sx_n,
                      int sy_n, float width, float height, void* stream) {
   if (batch > 0 && sx_n > 0 && sy_n > 0) {
-    return (int)launch_ztile(raster_exact_kernel, kRecExact, ztile_grid(sx_n, sy_n, batch),
+    return (int)launch_ztile(raster_exact_kernel, kRecExact, ztile_blocks(sx_n, sy_n, batch),
                              (cudaStream_t)stream, u, v, z, sample_x, sample_y, out, num_faces,
                              sx_n, sy_n, width, height);
   }

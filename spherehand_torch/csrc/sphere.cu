@@ -204,10 +204,14 @@ sphere_fields(const float* __restrict__ centers,  // (N, J, 3)
   __shared__ int fg_count[kBandSlots][kFwdWarps];
   __shared__ float grid[kMaxSize];  // grid_mm of each column and row
   __shared__ unsigned char covered_list[kFwdWarps][kMaxJ];  // depth: a tile's spheres
-  const int n = blockIdx.y;
   const int pixels = size * size;
-  // The depth blocks of the image come first, then its distance blocks.
+  // Blocks run image by image in gridDim.x (up to 2^31 - 1 blocks, where
+  // gridDim.y would stop at 65,535 images): the depth blocks of an image
+  // come first, then its distance blocks.
   const int depth_bands = kD ? (size + kTile - 1) / kTile : 0;
+  const int bands = depth_bands + (kM ? (size + kDistRows - 1) / kDistRows : 0);
+  const int n = (int)(blockIdx.x / bands);
+  const int band = (int)(blockIdx.x % bands);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   for (int j = threadIdx.x; j < num_j; j += blockDim.x) {
@@ -221,8 +225,8 @@ sphere_fields(const float* __restrict__ centers,  // (N, J, 3)
   __syncthreads();
   const size_t plane0 = (size_t)n * pixels;
 
-  if (kD && (int)blockIdx.x < depth_bands) {
-    const int v0 = blockIdx.x * kTile;
+  if (kD && band < depth_bands) {
+    const int v0 = band * kTile;
     const int rows = min(kTile, size - v0);
     const int tiles_x = (size + kTile - 1) / kTile;
     const float y_lo = grid[v0];
@@ -294,7 +298,7 @@ sphere_fields(const float* __restrict__ centers,  // (N, J, 3)
       }
     }
   } else if constexpr (kM) {
-    const int v0 = ((int)blockIdx.x - depth_bands) * kDistRows;
+    const int v0 = (band - depth_bands) * kDistRows;
     const int rows = min(kDistRows, size - v0);
     const float* z_plane = target + (size_t)target_plane(n, views) * pixels;
     const int p0 = v0 * size;
@@ -531,7 +535,9 @@ cudaError_t launch_fwd(const float* centers, const float* radii, const float* ta
                        float* wd, int* aminm, float* wm, int residuals, cudaStream_t s) {
   const int depth_bands = (kFields & kDepth) ? (size + kTile - 1) / kTile : 0;
   const int dist_bands = (kFields & kDist) ? (size + kDistRows - 1) / kDistRows : 0;
-  const dim3 grid(depth_bands + dist_bands, n);
+  const long long blocks = (long long)(depth_bands + dist_bands) * n;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;  // gridDim.x's limit
+  const unsigned grid = (unsigned)blocks;
   if (residuals) {
     sphere_fields<kFields, true><<<grid, kFwdThreads, 0, s>>>(
         centers, radii, target, num_j, size, views, depth, dist, amind, wd, aminm, wm);
@@ -572,7 +578,7 @@ int shx_sphere_fields(const float* centers, const float* radii, const float* tar
                       int n, int num_j, int size, int views,
                       float* depth, float* dist, int* amind, float* wd, int* aminm,
                       float* wm, int fields, int residuals, void* stream) {
-  if (num_j < 1 || num_j > kMaxJ || n > 65535 || size < 1 || size > kMaxSize) {
+  if (num_j < 1 || num_j > kMaxJ || n < 0 || size < 1 || size > kMaxSize) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;

@@ -20,11 +20,12 @@ its host time. For each piece it prints one JSON line, per call:
 - ``top``: the recorded device ops with the most time, as [name, ms, count].
 
 Pieces, at B = 128 (the main path's batch) and 1024: the geometry front end
-(``project_faces_planes``), each plain pre-pass, each raster kernel (the
-z-tile kernels from the planes, the raw ``raster_fast`` from the fast
-pre-pass's records, at the same 128 x 128 samples), ``render_depth_64`` fast and
-exact, ``synthesize`` (fast, with noise) and ``PoseEstimator.predict`` with
-the shipped weights. Then, at ``EngineConfig`` defaults (48 synthetic + 25 x
+(``project_faces_planes``), each plain pre-pass, each raster kernel (from
+the planes, at the same 128 x 128 samples), ``rasterize_fast`` (the raw
+fast entry point from the planes), ``render_depth_64`` fast and exact,
+``synthesize`` (fast, with noise) and ``PoseEstimator.predict`` with the
+shipped weights; ``raster_fast`` alone at B = 32 on the whole 640 x 640
+canvas. Then, at ``EngineConfig`` defaults (48 synthetic + 25 x
 3 real, from the shipped weights): each sphere kernel alone (fused, min
 depth, nearest distance) at the combined step's N = 225 images, the
 mutual-projection loss forward and backward from the estimator's joints in
@@ -52,6 +53,7 @@ CALLS = 10
 TRACE_ATTEMPTS = 3
 SEED = 0
 BATCHES = (128, 1024)
+CANVAS_BATCH = 32
 TOP = 6
 # Prefixes of the runtime calls that each put one activity on the device.
 DEVICE_WORK_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cuMemcpy", "cudaMemset", "cuMemset")
@@ -186,7 +188,6 @@ def _profile_render_and_serve(model, samples, estimator) -> None:
         tr = apply_scale(forward_kinematics(model, poses), draws.scale_u, 0.1)
         rand_f = draws.rand_f
         planes = project_faces_planes(model, tr, 640.0, rand_f)
-        rec_f, box_f = raster_cuda.prepass_fast(planes=planes)
         dms_mm = synthesize(model, gen, poses).dms * 100.0
         pieces = {
             "planes": lambda: project_faces_planes(model, tr, 640.0, rand_f),
@@ -194,7 +195,8 @@ def _profile_render_and_serve(model, samples, estimator) -> None:
             "prepass_exact": lambda: raster_cuda.prepass_exact(planes=planes),
             "kernel_fast": lambda: raster_cuda.launch_raster_fast_pooled(
                 planes, samples, samples, 100.0),
-            "kernel_fast_raw": lambda: raster_cuda.launch_raster_fast(rec_f, box_f, samples, samples),
+            "kernel_fast_raw": lambda: raster_cuda.launch_raster_fast(planes, samples, samples),
+            "rasterize_fast": lambda: raster_cuda.rasterize_fast(samples, samples, planes=planes),
             "kernel_exact": lambda: raster_cuda.launch_raster_exact(
                 planes, samples, samples, 640, 640),
             "render_fast": lambda: render_depth_64(model, tr, rand_f),
@@ -205,6 +207,13 @@ def _profile_render_and_serve(model, samples, estimator) -> None:
         for name, fn in pieces.items():
             row = {"piece": name, "batch": batch, **profile_piece(fn)}
             print(json.dumps(row), flush=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    planes = project_faces_planes(model, forward_kinematics(model, sample_poses(gen, CANVAS_BATCH)),
+                                  640.0)
+    canvas = torch.arange(640, dtype=torch.float32, device=dev)
+    row = {"piece": "kernel_fast_raw_canvas640", "batch": CANVAS_BATCH, **profile_piece(
+        lambda: raster_cuda.launch_raster_fast(planes, canvas, canvas))}
+    print(json.dumps(row), flush=True)
 
 
 def _profile_train_steps(model) -> None:

@@ -103,6 +103,18 @@ def _rel(a, b) -> float:
     return _max_abs(a, b) / max(float(scale.max()) if scale.numel() else 0.0, 1e-30)
 
 
+def sphere_fwd_stats(ours, ref, k: int) -> dict:
+    """Two forwards' planes (the k fields, then each field's argmin and
+    weight planes) against each other, as :func:`sphere_kernel_stats` reads
+    them."""
+    amins, weights = range(k, 3 * k, 2), range(k + 1, 3 * k, 2)
+    return {
+        "fields_max_abs_err": max(_max_abs(ours[i], ref[i]) for i in range(k)),
+        "argmin_mismatch": sum(int((ours[i] != ref[i]).sum()) for i in amins),
+        "weight_ulps": max(_max_ulps(ours[i], ref[i]) for i in weights),
+    }
+
+
 def sphere_kernel_stats(centers, target, radii, size: int, views: int,
                         generator: torch.Generator, fields: int = sc.BOTH) -> dict:
     """Run the sphere kernels of ``fields`` (``sc.DEPTH``, ``sc.DIST`` or
@@ -134,13 +146,13 @@ def sphere_kernel_stats(centers, target, radii, size: int, views: int,
         z = sc.gathered_target(target, centers.shape[0], views)
         finite = torch.isfinite(z).flatten(1).all(dim=1)
     torch.cuda.synchronize()
-    amins, weights = range(k, 3 * k, 2), range(k + 1, 3 * k, 2)
+    fwd = sphere_fwd_stats(fwd_k, fwd_p, k)
     return {
-        "fields_max_abs_err": max(_max_abs(fwd_k[i], fwd_p[i]) for i in range(k)),
+        "fields_max_abs_err": fwd["fields_max_abs_err"],
         "primal_max_abs_err": max(_max_abs(prim_k[i], prim_p[i]) for i in range(k)),
         "primal_vs_fwd": max(_max_abs(prim_k[i], fwd_k[i]) for i in range(k)),
-        "argmin_mismatch": sum(int((fwd_k[i] != fwd_p[i]).sum()) for i in amins),
-        "weight_ulps": max(_max_ulps(fwd_k[i], fwd_p[i]) for i in weights),
+        "argmin_mismatch": fwd["argmin_mismatch"],
+        "weight_ulps": fwd["weight_ulps"],
         "bwd_max_abs_err": _max_abs(bwd_k, bwd_p),
         "bwd_rel_plain": _rel(bwd_k, bwd_p),
         "bwd_rel_autograd": _rel(bwd_k[finite], leaf.grad[finite]),

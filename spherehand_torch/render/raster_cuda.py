@@ -10,29 +10,31 @@ not their block layout:
   row, z-min over faces, and the fused epilogue ``mean_2x2(min(z, clamp))``
   straight into the (B, 64, 64) canvas.
 - ``raster_fast`` replaces ``_raster_kernel_fast`` (raster_pallas.py:524):
-  the same coverage and depth at any sample grid (one sample a thread; Sx
-  and Sy need not be multiples of 8), raw (B, Sy, Sx) buffer with background
-  1000, no pooling. It is the JAX ``rasterize_depth_binned(..., exact=False)``
-  without ``bilinear_grid``.
+  the same coverage and depth at any ascending sample grid, raw (B, Sy, Sx)
+  buffer with background 1000, no pooling. It is the JAX
+  ``rasterize_depth_binned(..., exact=False)`` without ``bilinear_grid``.
 - ``raster_exact`` replaces ``_raster_kernel_exact`` (raster_pallas.py:756):
   the reference CUDA scanline-span coverage on clamped, renormalised
   barycentrics, raw (B, Sy, Sx) buffer with background 1000.
 
-``raster_fast_pooled`` and ``raster_exact`` read the projected planes
-(u, v, z), each (B, 3F) in face-vertex order (``skinning.project_faces_planes``),
-and set every face up inside the kernel: no PyTorch op runs before them. Each
-block owns a 64 x 64 z-tile of samples in shared memory; the faces that reach
-it go to its threads, which fold covered depths into the tile with an atomic
-min on an order-preserving integer key (:func:`depth_key` is its plain
-mirror), so the result does not depend on face order or scheduling. The
-sample grids must be sorted ascending.
+All three read the projected planes (u, v, z), each (B, 3F) in face-vertex
+order (``skinning.project_faces_planes``), and set every face up inside the
+kernel: no PyTorch op runs before them. Each block owns a 64 x 64 z-tile of
+samples in shared memory; the faces that reach it go to its threads, which
+fold covered depths into the tile with an atomic min on an order-preserving
+integer key (:func:`depth_key` is its plain mirror), so the result does not
+depend on face order or scheduling. The sample grids must be sorted
+ascending. ``raster_fast_pooled`` and ``raster_exact`` find a tile's faces
+by scanning all faces of the image; ``raster_fast`` (up to
+``BIN_MAX_TILES`` tiles an image) runs a binning pass first that puts each
+face into the lists of the tiles its box reaches (:func:`tile_bins` is its
+plain mirror), and each tile drains only its list.
 
 The plain pre-pass (:func:`prepass_fast`, :func:`prepass_exact`) sorts each
 face's vertices by x with the reference tie ladder, culls back-facing and
 degenerate faces, and builds the records in the JAX field layouts (fast 9
 fields, exact 24) plus a per-face bounding box. It is the front end of the
-plain fast version and the input of ``raster_fast``, which filters the face
-list block by block (no sort of faces is needed).
+plain fast version; no kernel reads it.
 
 Beside each kernel is its plain PyTorch version: :func:`rasterize_depth`
 (``render/raster.py``) for the exact kernel and :func:`raster_fast_plain`
@@ -66,10 +68,18 @@ from spherehand_torch.render.raster import (
     sort_order,
 )
 
-FREC_FAST = 9    # fields per fast-mode face record
 # px added around a face's box for the fast-mode coverage (kBoxMargin in
 # csrc/raster.cu)
 BOX_MARGIN = 1.0
+# Samples a side of a kernel's z-tile (kZTile in csrc/raster.cu).
+ZTILE = 64
+# z-tiles an image from which raster_fast bins its faces before the raster
+# instead of scanning all faces in every tile (binned measured faster at 4
+# and at 100 tiles, raster_ab), and up to which it may: the binning pass
+# keeps two counters a tile in shared memory, and its scratch is F + 1
+# int32 a tile.
+BIN_MIN_TILES = 1
+BIN_MAX_TILES = 2048
 
 LAUNCHES = {"raster_fast_pooled": 0, "raster_fast": 0, "raster_exact": 0}
 
@@ -254,6 +264,37 @@ def raster_fast_plain(
     return pool_2x2(torch.clamp(zbuf, max=pool_clamp))
 
 
+# ------------------------------------------------------------ tile bins
+
+
+def ztiles(sx_n: int, sy_n: int) -> tuple[int, int]:
+    """(columns, rows) of z-tiles over a (Sx,) x (Sy,) sample grid."""
+    return -(-sx_n // ZTILE), -(-sy_n // ZTILE)
+
+
+def tile_bins(planes, sample_x: torch.Tensor, sample_y: torch.Tensor) -> torch.Tensor:
+    """Plain mirror of ``raster_fast``'s binning pass: (B, tiles_y,
+    tiles_x, F) bool, True where face f is in the list of that z-tile.
+
+    A front-facing, non-degenerate face (:func:`prepass_fast`'s box, empty
+    for the others) goes into every tile of ``ZTILE`` samples a side whose
+    sample range, first to last sample in x and in y, its box meets (the
+    scanning kernels' test). A face that covers a sample of a tile is in
+    its list; a listed face may cover none (its box reaches the range, or
+    falls between two of its samples)."""
+    _, box = prepass_fast(planes=planes)
+
+    def meets(lo, hi, s):
+        """(B, F, tiles): the box [lo, hi] meets a tile's first-to-last samples."""
+        starts = torch.arange(0, s.shape[0], ZTILE, device=s.device)
+        first, last = s[starts], s[torch.clamp(starts + ZTILE - 1, max=s.shape[0] - 1)]
+        return (hi[..., None] >= first) & (lo[..., None] <= last)
+
+    in_x = meets(box[..., 0], box[..., 1], sample_x)  # (B, F, tiles_x)
+    in_y = meets(box[..., 2], box[..., 3], sample_y)  # (B, F, tiles_y)
+    return (in_y[..., :, None] & in_x[..., None, :]).permute(0, 2, 3, 1)
+
+
 # ------------------------------------------------------------- depth key
 
 
@@ -291,7 +332,7 @@ def _library():
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         for name, pointers, scalars in (
             ("shx_raster_fast_pooled", 6, [f32]),
-            ("shx_raster_fast", 5, []),
+            ("shx_raster_fast", 8, []),
             ("shx_raster_exact", 6, [f32, f32]),
         ):
             fn = getattr(lib, name)
@@ -315,15 +356,16 @@ def _check(t: torch.Tensor, name: str, shape: tuple) -> None:
         raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
 
 
-def _launch(name: str, tensors, out: torch.Tensor, args) -> torch.Tensor:
-    """Launch ``shx_<name>`` with the pointers of ``tensors`` and ``out``,
-    then ``args`` (the sizes and scalars of its C signature) and the current
-    stream."""
+def _launch(name: str, tensors, out: torch.Tensor, args, scratch=()) -> torch.Tensor:
+    """Launch ``shx_<name>`` with the pointers of ``tensors``, ``out`` and
+    ``scratch`` (None passes NULL), then ``args`` (the sizes and scalars of
+    its C signature) and the current stream."""
     lib = _library()
     stream = torch.cuda.current_stream(out.device).cuda_stream
     with torch.cuda.device(out.device):
         rc = getattr(lib, f"shx_{name}")(
-            *(t.data_ptr() for t in tensors), out.data_ptr(), *args, stream,
+            *(t.data_ptr() for t in tensors), out.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in scratch), *args, stream,
         )
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: {lib.shx_error_string(rc).decode()}")
@@ -360,20 +402,45 @@ def launch_raster_fast_pooled(planes, sample_x, sample_y, pool_clamp: float):
                    (batch, num_faces, out_w, out_h, float(pool_clamp)))
 
 
-def launch_raster_fast(records, box, sample_x, sample_y):
-    """Run the raw fast kernel: (B, F, 9) records + (B, F, 4) boxes at the
-    sample grid (Sx,) x (Sy,) -> raw (B, Sy, Sx), background 1000."""
-    batch, num_faces = records.shape[:2]
+def launch_raster_fast(planes, sample_x, sample_y):
+    """Run the raw fast kernel: (u, v, z) planes, each (B, 3F), at the
+    sample grid (Sx,) x (Sy,) -> raw (B, Sy, Sx), background 1000.
+
+    The grid may be any ascending (Sx,) x (Sy,), with no multiple of 8 or
+    uniform spacing asked: the JAX kernel bins faces by searchsorted over
+    its grid, so this is no narrower than its contract. With
+    ``BIN_MIN_TILES`` to ``BIN_MAX_TILES`` z-tiles an image, the faces are
+    binned first."""
+    return _raster_fast(planes, sample_x, sample_y,
+                        bins_faces(sample_x.shape[0], sample_y.shape[0]))
+
+
+def bins_faces(sx_n: int, sy_n: int) -> bool:
+    """Whether ``raster_fast`` bins the faces first on a (Sx,) x (Sy,) grid:
+    from ``BIN_MIN_TILES`` to ``BIN_MAX_TILES`` z-tiles an image."""
+    tiles_x, tiles_y = ztiles(sx_n, sy_n)
+    return BIN_MIN_TILES <= tiles_x * tiles_y <= BIN_MAX_TILES
+
+
+def _raster_fast(planes, sample_x, sample_y, binned: bool):
+    """:func:`launch_raster_fast` with the face lists chosen by the caller
+    (a lever for measurement, ``raster_ab``): ``binned`` takes them from the
+    binning pass, with int32 scratch of a count and F entries a z-tile;
+    else every z-tile scans all faces of its image."""
+    batch, num_faces = _check_planes(planes)
     sx_n, sy_n = sample_x.shape[0], sample_y.shape[0]
-    _check(records, "records", (batch, num_faces, FREC_FAST))
-    _check(box, "box", (batch, num_faces, 4))
     _check(sample_x, "sample_x", (sx_n,))
     _check(sample_y, "sample_y", (sy_n,))
-    if box.data_ptr() % 16:
-        raise ValueError("box: the kernel reads it as float4 and needs 16-byte alignment")
-    out = torch.empty((batch, sy_n, sx_n), dtype=torch.float32, device=records.device)
-    return _launch("raster_fast", (records, box, sample_x, sample_y), out,
-                   (batch, num_faces, sx_n, sy_n))
+    dev = planes[0].device
+    out = torch.empty((batch, sy_n, sx_n), dtype=torch.float32, device=dev)
+    counts = lists = None
+    if binned:
+        tiles_x, tiles_y = ztiles(sx_n, sy_n)
+        slots = batch * tiles_x * tiles_y
+        scratch = torch.empty((slots * (num_faces + 1),), dtype=torch.int32, device=dev)
+        counts, lists = scratch[:slots], scratch[slots:]
+    return _launch("raster_fast", (*planes, sample_x, sample_y), out,
+                   (batch, num_faces, sx_n, sy_n), scratch=(counts, lists))
 
 
 def launch_raster_exact(planes, sample_x, sample_y, width: int, height: int):
@@ -418,14 +485,16 @@ def rasterize_fast(
     face_vertices: torch.Tensor | None = None,
     planes: tuple | None = None,
 ) -> torch.Tensor:
-    """Fast-mode z-buffer at any sample grid: raw (B, Sy, Sx), background
-    1000 (JAX ``rasterize_depth_binned(..., exact=False)`` without
+    """Fast-mode z-buffer at any ascending sample grid: raw (B, Sy, Sx),
+    background 1000 (JAX ``rasterize_depth_binned(..., exact=False)`` without
     ``bilinear_grid``). CPU tensors take the plain version; CUDA tensors the
-    kernel."""
-    records, box = prepass_fast(face_vertices, planes)
+    kernel, which reads the planes directly."""
     if _device(face_vertices, planes).type == "cpu":
+        records, box = prepass_fast(face_vertices, planes)
         return raster_fast_plain(records, box, sample_x, sample_y)
-    return launch_raster_fast(records, box, sample_x, sample_y)
+    if planes is None:
+        planes = planes_of(face_vertices)
+    return launch_raster_fast(planes, sample_x, sample_y)
 
 
 def rasterize_exact(

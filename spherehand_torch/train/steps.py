@@ -262,14 +262,22 @@ def build_steps(cfg: EngineConfig, hand: HandModel | None = None,
     @torch.no_grad()
     def eval_step(state: TrainState, draws: StepDraws, batch: RealBatch):
         """Losses for logging plus the headline metric: view 0, last stack,
-        palm joints denoised (engine.py:203-207)."""
+        palm joints denoised (engine.py:203-207).
+
+        It carries no temporal state, as the JAX eval step passes none: with
+        ``temporal`` on, rows 1..B-1 are measured against their
+        predecessors and row 0 against nothing (a zero skeleton, no
+        previous batch), whatever the train state carries."""
         with float32_precision(eval_precision):
             scaled_real = batch.dms * _C.depth_scale
             out = forward(state.network, real_dms=scaled_real)
+            last = out.real_xyz[-1]
             terms, _, _ = multitask_loss(
                 loss_cfg, out, radii, vae=vae, real_target=_real_target(batch),
-                vae_noise=draws.vae_noise, is_mv=True, prev_skel=state.prev_skel,
-                has_prev=state.has_prev, real_weights=batch.weights,
+                vae_noise=draws.vae_noise, is_mv=True,
+                prev_skel=torch.zeros(last.shape[1:], dtype=last.dtype, device=last.device),
+                has_prev=torch.zeros((), dtype=torch.bool, device=last.device),
+                real_weights=batch.weights,
             )
             est = out.real_xyz[-1][:, 0]  # (B, 41, 3), view 0
             denoised = denoiser(est)

@@ -62,9 +62,8 @@ def _reversed(planes):
 
 
 def _check_pair(fv, s, size):
-    """The three raster kernels against their plain versions on one
-    geometry (the two z-tile kernels from planes, the raw fast kernel from
-    records); the raw fast kernel with identical coverage."""
+    """The three raster kernels, from planes, against their plain versions
+    on one geometry; the raw fast kernel bit for bit, scanning and binned."""
     planes = raster_cuda.planes_of(fv)
     kernel = raster_cuda.launch_raster_exact(planes, s, s, size, size)
     plain = rasterize_depth(fv, s, s, size, size)
@@ -75,11 +74,11 @@ def _check_pair(fv, s, size):
     plain = raster_cuda.raster_fast_plain(records, box, s, s, 100.0)
     torch.cuda.synchronize()
     assert float((kernel - plain).abs().max()) <= 1e-3
-    kernel = raster_cuda.launch_raster_fast(records, box, s, s)
     plain = raster_cuda.raster_fast_plain(records, box, s, s)
-    torch.cuda.synchronize()
-    assert torch.equal(kernel < 999, plain < 999)
-    assert float((kernel - plain).abs().max()) <= 1e-3
+    for binned in (False, True):
+        kernel = raster_cuda._raster_fast(planes, s, s, binned)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(kernel), _bits(plain))
 
 
 def test_kernels_match_plain_on_hands(hand_planes):
@@ -96,7 +95,7 @@ def test_kernels_match_plain_adversarial(cuda, case):
     _check_pair(torch.as_tensor(faces, device=cuda), s, size)
 
 
-@pytest.mark.parametrize("kernel", ["raster_fast_pooled", "raster_exact"])
+@pytest.mark.parametrize("kernel", ["raster_fast_pooled", "raster_exact", "raster_fast"])
 def test_ztile_kernels_are_order_free(hand_planes, kernel):
     """Two launches give the same bits, so does the reversed face order
     (the z-tile takes an atomic min on order-preserving keys), and one face
@@ -108,6 +107,8 @@ def test_ztile_kernels_are_order_free(hand_planes, kernel):
     def launch(p):
         if kernel == "raster_exact":
             return raster_cuda.launch_raster_exact(p, s, s, 640, 640)
+        if kernel == "raster_fast":
+            return raster_cuda.launch_raster_fast(p, s, s)
         return raster_cuda.launch_raster_fast_pooled(p, s, s, 100.0)
 
     first, again, flipped = launch(planes), launch(planes), launch(_reversed(planes))
@@ -121,7 +122,8 @@ def test_ztile_kernels_are_order_free(hand_planes, kernel):
     if kernel == "raster_exact":
         plain = rasterize_depth(fv, s, s)
     else:
-        plain = raster_cuda.raster_fast_plain(*raster_cuda.prepass_fast(fv), s, s, 100.0)
+        clamp = 100.0 if kernel == "raster_fast_pooled" else None
+        plain = raster_cuda.raster_fast_plain(*raster_cuda.prepass_fast(fv), s, s, clamp)
     torch.cuda.synchronize()
     assert (plain < 99).float().mean() > 0.3
     assert torch.equal(_bits(giant), _bits(plain))
@@ -218,19 +220,18 @@ def test_train_steps_on_card(cuda):
 
 
 def test_raster_fast_on_a_non_uniform_grid(hand_planes):
-    """Sample counts that are no multiple of 8, unevenly spaced."""
+    """Sample counts that are no multiple of 8, unevenly spaced: bit for
+    bit, scanning and binned."""
     _, planes = hand_planes
-    fv = _face_vertices(planes)
     sx = torch.sort(torch.rand(100, generator=torch.Generator(device="cuda").manual_seed(4),
                                device="cuda") * 640.0).values
     sy = (torch.linspace(0.0, 1.0, 77, device="cuda") ** 2) * 639.0
-    records, box = raster_cuda.prepass_fast(fv)
-    kernel = raster_cuda.launch_raster_fast(records, box, sx, sy)
-    plain = raster_cuda.raster_fast_plain(records, box, sx, sy)
-    torch.cuda.synchronize()
-    assert kernel.shape == (8, 77, 100)
-    assert torch.equal(kernel < 999, plain < 999)
-    assert float((kernel - plain).abs().max()) <= 1e-3
+    plain = raster_cuda.raster_fast_plain(*raster_cuda.prepass_fast(planes=planes), sx, sy)
+    for binned in (False, True):
+        kernel = raster_cuda._raster_fast(planes, sx, sy, binned)
+        torch.cuda.synchronize()
+        assert kernel.shape == (8, 77, 100)
+        assert torch.equal(_bits(kernel), _bits(plain))
 
 
 @pytest.mark.parametrize("case", ["random_225", "adversarial", "edge"])

@@ -242,7 +242,7 @@ def test_rasterize_fast_takes_the_plain_version_and_its_kernel_refuses_cpu(hand_
     assert raw.shape == (1, 21, 37) and (raw.numpy() < 999).any()
     assert all(n == 0 for n in raster_cuda.LAUNCHES.values())
     with pytest.raises(ValueError, match="CUDA"):
-        raster_cuda.launch_raster_fast(records, box, sx, sy)
+        raster_cuda.launch_raster_fast(raster_cuda.planes_of(_t(fv[:1])), sx, sy)
 
 
 def test_planes_of_is_the_face_vertex_order(hand_setup):

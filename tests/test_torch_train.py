@@ -121,11 +121,82 @@ def test_real_combined_and_eval_steps_on_cpu(port_hand):
     assert float(m1["mv_consistency"]) == 0.0 and bool(state.has_prev)
     assert vis["synt_dms"].shape == (2, 64, 64) and vis["real_xyz"].shape == (2, 3, 41, 3)
     state, m2, _ = fns.real_step(state, 1e-3, fns.draw(gen, synt=False), batch)
-    metrics, denoised = fns.eval_step(state, fns.draw(gen, synt=False), batch)
+    draws = fns.draw(gen, synt=False)
+    metrics, denoised = fns.eval_step(state, draws, batch)
     for m in (m1, m2, metrics):
         assert all(bool(torch.isfinite(v)) for v in m.values()), m
     assert state.step == 2 and denoised.shape == (2, 41, 3)
     assert "pose_prior" in metrics and "avg_joint_error_raw" in metrics
+    # the eval step carries no temporal state: the train state's skeleton
+    # (carried since the combined step) does not reach its metrics
+    assert bool(state.has_prev)
+    state.prev_skel = state.prev_skel + 50.0
+    again, _ = fns.eval_step(state, draws, batch)
+    assert all(torch.equal(again[k], v) for k, v in metrics.items())
+
+
+def _jax_row_noise(key, rows):
+    """The normals JAX's PoseVae draws from ``key``, one fold_in per row."""
+    keys = jax.vmap(jax.random.fold_in, (None, 0))(key, jnp.arange(rows))
+    return np.asarray(jax.vmap(lambda k: jax.random.normal(k, (32,), jnp.float32))(keys))
+
+
+def test_eval_step_temporal_term_is_within_batch_like_jax(goldens, hand_model, port_hand):
+    """With ``temporal`` on, ``eval_step``'s terms equal JAX's
+    ``multitask_loss`` given a zero ``prev_skel`` and ``has_prev`` False
+    (the form that needs no state; JAX's own eval step passes none) on the
+    same estimator outputs, real batch and prior noise, with the tolerances
+    of tests/test_torch_losses.py (rtol 1e-5, 2e-4 for the mutual
+    projection); and they stay the same bits whatever skeleton the train
+    state carries, where a carried skeleton would move the temporal term."""
+    from spherehand_tpu.losses import multitask as jmt
+    from spherehand_tpu.models import estimator as jest
+    from spherehand_tpu.models import pose_vae as jvae
+    from spherehand_torch.constants import Constants
+    from spherehand_torch.infer import float32_precision
+    from spherehand_torch.models.estimator import forward
+
+    rng = np.random.RandomState(21)
+    g = goldens("multiview")
+    dms, poses, inv = (np.asarray(g[k], np.float32) for k in ("dms", "poses", "inv_poses"))
+    batch_n, views = dms.shape[:2]
+    gt = rng.uniform(-60, 60, (batch_n, views, 36, 3)).astype(np.float32)
+    cfg = EngineConfig(synt_batch=2, real_batch=batch_n, temporal=True, eval_precision="highest")
+    fns = build_steps(cfg, hand=port_hand)
+    state = fns.init_state(torch.Generator().manual_seed(5))
+    batch = RealBatch(*(torch.from_numpy(a) for a in (dms, gt, poses, inv)))
+    key = jax.random.key(8)
+    noise = _jax_row_noise(jax.random.split(key, 1)[0], batch_n * views)
+    draws = StepDraws(None, None, None, (torch.from_numpy(noise.copy()),))
+    metrics, _ = fns.eval_step(state, draws, batch)
+
+    with torch.no_grad(), float32_precision("highest"):
+        out = forward(state.network, real_dms=batch.dms * Constants().depth_scale)
+    real = [tuple(jnp.asarray(x.numpy()) for x in getattr(out, k))
+            for k in ("real_uv_hms", "real_d_hms", "real_xyz")]
+    j_out = jest.EstimatorOutput((), (), (), *real, None, (), ())
+    target = {"real_dms": jnp.asarray(dms), "camera_poses": jnp.asarray(poses),
+              "inv_camera_poses": jnp.asarray(inv)}
+
+    def jax_terms(prev, has_prev):
+        terms, _, _ = jmt.multitask_loss(
+            jmt.LossConfig(temporal=True), j_out, hand_model.kp_radius,
+            vae_params=jvae.load_pose_vae_params(), real_target=target, rng=key,
+            is_mv=jnp.asarray(True), prev_skel=jnp.asarray(prev), has_prev=jnp.asarray(has_prev))
+        return terms
+
+    ref = jax_terms(np.zeros((views, 41, 3), np.float32), False)
+    assert sorted(ref) == sorted(k for k in metrics if not k.startswith("avg_joint_error"))
+    for name, value in ref.items():
+        np.testing.assert_allclose(np.asarray(metrics[name]), np.asarray(value), atol=1e-6,
+                                   rtol=2e-4 if name == "mv_projection" else 1e-5)
+
+    carried = rng.uniform(-50, 50, (views, 41, 3)).astype(np.float32)
+    state.prev_skel, state.has_prev = torch.from_numpy(carried), torch.tensor(True)
+    again, _ = fns.eval_step(state, draws, batch)
+    assert all(torch.equal(again[k], v) for k, v in metrics.items())
+    moved = jax_terms(carried, True)["temporal_smooth"]
+    assert abs(float(moved) - float(ref["temporal_smooth"])) > 1e-3 * abs(float(moved))
 
 
 def test_init_matches_jax_initialisers_by_distribution():
