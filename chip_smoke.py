@@ -72,7 +72,33 @@ Phases, each fatal on failure:
      planes, repeated) and the fused sphere kernels (forward, primal,
      backward) at N = 65,538 (phase 6's 25 hands repeated to B = 7,282 at V
      = 3); a few images at each end against their plain versions, held as in
-     phases 3 and 6, and the first images equal to a launch of those alone.
+     phases 3 and 6, and the first images equal to a launch of those alone;
+ 12. the engine on NYU-format shards (EngineConfig defaults: 48 synthetic
+     + 25 x 3 real, eval batch 8, one stack, the full mesh):
+     (a) a train split of 100 rendered multi-view hands in two shards and a
+         test split of 16, written by data.nyu.write_shard;
+     (b) 2 combined epochs (synt_iters_per_epoch 2, mv_curriculum_iters 2:
+         both curriculum branches) with device_data off and on: metrics
+         finite, every parameter moved, raster_fast_pooled and the fused
+         sphere forward and backward launched, the first epoch's batches
+         equal under on and off bit for bit, the run directory complete;
+     (c) 1 epoch, resume from the rolling latest, 1 more: the restored
+         state equal to the saved one bit for bit, the resumed run at epoch
+         1 with (b)'s epoch-1 index plan and draws, its last logged loss
+         (epoch 1's first step) equal to the saving run's own continuation
+         of that step, bit for bit; its loss against (b)'s is printed
+         beside (b) on's against (b) off's, the card's run-to-run spread
+         (the upsample's backward adds with atomics, and Adam's first steps
+         amplify the difference);
+     (d) eval of (b)'s last checkpoint (TF32 off): result.npz (16, 36, 3) /
+         (16, 41, 3), evaluate_result_file, the fused primal launched, and
+         load_estimator's predict within 1e-2 mm of the eval's joints;
+     (e) a synthetic-only and a real-only epoch of 2 steps each;
+     (f) python -m spherehand_torch --mode Train --epoch 1 on (a)'s shards
+         as a subprocess: exit 0 and a checkpoint;
+     with steps/s by mode (StepTimer, one rate an epoch) and the host ms a
+     batch of the host loader (gather, pinned copy) against the resident
+     split's gather.
 
 The last three lines of standard output are the kernels JSON line, the card's
 name and power limit, and the result line. Exits non-zero without a GPU.
@@ -184,6 +210,10 @@ LIMIT_CHECK = 3  # images (raster) or hands (sphere) checked at each end
 GPU_CPU_TERM_REL = 1e-3
 GPU_CPU_GNORM_REL = 5e-2
 TRAIN_STEPS = 3
+# Phase 12: served joints against the eval step's (phase 4's serving limit).
+EVAL_SERVE_MAX_MM = 1e-2
+ENGINE_SPLITS = {"train": (50, 50), "test": (16,)}
+FEED_EPOCHS = 5
 
 
 def log(msg: str) -> None:
@@ -334,6 +364,244 @@ def launch_limits(raster_cuda, sc, hand_planes, samples, centers, target, radii,
         f"end images vs plain: {json.dumps(report)}")
     del fwd, primal, bwd, big_c, big_t
     torch.cuda.empty_cache()
+
+
+def engine_phase(model, dev, seed: int, smi: str) -> None:
+    """Phase 12: the engine, checkpoints, eval and the CLI on NYU-format
+    shards of rendered hands, at the EngineConfig defaults."""
+    import shutil
+    import tempfile
+
+    from spherehand_torch.data.nyu import NyuDataset, write_shard
+    from spherehand_torch.data.pseudo_real import render_multiview_batch
+    from spherehand_torch.evaluation.offline import evaluate_result_file
+    from spherehand_torch.infer import load_estimator
+    from spherehand_torch.render import raster_cuda, sphere_cuda
+    from spherehand_torch.train.config import EngineConfig
+    from spherehand_torch.train.engine import Engine
+
+    def reset():
+        torch.cuda.synchronize()
+        raster_cuda.reset_launch_counts()
+        sphere_cuda.reset_launch_counts()
+
+    def launched(names, tag) -> dict:
+        torch.cuda.synchronize()
+        counts = {**raster_cuda.LAUNCHES, **sphere_cuda.LAUNCHES}
+        missing = [n for n in names if counts[n] < 1]
+        if missing:
+            fail(f"[12{tag}] kernels {missing} were not launched: {counts}")
+        return {n: counts[n] for n in names}
+
+    def records(engine) -> list[dict]:
+        with open(engine.metrics_file) as f:
+            return [json.loads(line) for line in f]
+
+    def finite(engine, tag) -> list[dict]:
+        recs = records(engine)
+        bad = [r for r in recs if not all(np.isfinite(v) for v in r.values()
+                                          if isinstance(v, float))]
+        if not recs or bad:
+            fail(f"[12{tag}] metrics missing or not finite: {bad or recs}")
+        return recs
+
+    def snapshot(state) -> dict:
+        opt = state.optimizer.state_dict()["state"]
+        return {"network": {k: v.clone() for k, v in state.network.state_dict().items()},
+                "optimizer": {f"{i}/{k}": v.clone() for i, s in opt.items() for k, v in s.items()},
+                "step": state.step, "prev_skel": state.prev_skel.clone(),
+                "has_prev": state.has_prev.clone()}
+
+    def same_state(a, b) -> bool:
+        return (a["step"] == b["step"] and torch.equal(a["prev_skel"], b["prev_skel"])
+                and torch.equal(a["has_prev"], b["has_prev"])
+                and all(a[part].keys() == b[part].keys()
+                        and all(torch.equal(v, b[part][k]) for k, v in a[part].items())
+                        for part in ("network", "optimizer")))
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_engine_")
+    try:
+        # ----------------------------------------------------------- (a)
+        gen = torch.Generator(device=dev).manual_seed(seed + 20)
+        data, small = os.path.join(tmp, "nyu"), os.path.join(tmp, "nyu_small")
+        for subset, sizes in ENGINE_SPLITS.items():
+            os.makedirs(os.path.join(data, subset))
+            for i, n in enumerate(sizes):
+                real = render_multiview_batch(model, gen, n)
+                write_shard(os.path.join(data, subset), f"mv_data_{i}",
+                            *(x.cpu().numpy() for x in (real.dms, real.gt_joints, real.poses)))
+        shutil.copytree(os.path.join(data, "test"), os.path.join(small, "train"))
+        sizes = {k: len(NyuDataset(os.path.join(data, k))) for k in ENGINE_SPLITS}
+        log(f"[12a] shards: {sizes} samples, 64 x 64 x 3 views "
+            f"({time.perf_counter() - t_phase:.2f} s)")
+
+        # ----------------------------------------------------------- (b)
+        model_dir = os.path.join(tmp, "runs")
+        base = dict(mode="Train", model_dir=model_dir, dataset_dir=data, epoch=2,
+                    synt_iters_per_epoch=2, mv_curriculum_iters=2)
+        cfg = EngineConfig(**base)
+        runs, rates = {}, {}
+        for mode in ("off", "on"):
+            eng = Engine(EngineConfig(**base, device_data=mode, tag=f"b_{mode}_"), device=dev,
+                         hand=model)
+            before = [p.detach().clone() for p in eng.state.network.parameters()]
+            reset()
+            t0 = time.perf_counter()
+            eng.train()
+            counts = launched(("raster_fast_pooled", "sphere_fused_fwd", "sphere_fused_bwd"),
+                              f"b {mode}")
+            train_s = time.perf_counter() - t0
+            recs = finite(eng, f"b {mode}")
+            moved = sum(not torch.equal(a, b) for a, b in zip(before, eng.state.network.parameters()))
+            files = ("metrics.jsonl", "log.txt", "loss_weights.txt", "model_-1.pt", "model_0.pt",
+                     "model_1.pt")
+            missing = [f for f in files if not os.path.exists(os.path.join(eng.model_path, f))]
+            if moved != len(before) or missing or eng.state.step != 8:
+                fail(f"[12b] device_data {mode}: moved {moved}/{len(before)}, step "
+                     f"{eng.state.step}, missing {missing}")
+            runs[mode] = eng
+            rates[f"both ({mode})"] = eng.steps_per_sec["both"]
+            log(f"[12b] device_data {mode}: {eng.state.step} steps in {train_s:.2f} s, launches "
+                f"{json.dumps(counts)}, parameters moved {moved}/{len(before)}; last record "
+                f"{json.dumps(recs[-1])}")
+        pairs = list(zip(runs["off"].batches(True, cfg.real_batch, 0),
+                         runs["on"].batches(True, cfg.real_batch, 0)))
+        equal = all(np.array_equal(i_off, i_on) and all(
+            (x is None and y is None) or torch.equal(x, y) for x, y in zip(b_off, b_on))
+            for (i_off, b_off), (i_on, b_on) in pairs)
+        if len(pairs) != 4 or not equal:
+            fail(f"[12b] epoch 0's batches under device_data on differ from off ({len(pairs)})")
+        feed = {}
+        for mode, eng in runs.items():
+            feed[mode] = []
+            for epoch in range(FEED_EPOCHS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                n = sum(1 for _ in eng.batches(True, cfg.real_batch, epoch))
+                torch.cuda.synchronize()
+                feed[mode].append((time.perf_counter() - t0) * 1e3 / n)
+        log(f"[12b] epoch 0's {len(pairs)} batches equal under device_data on and off, bit for "
+            f"bit; host ms "
+            f"a batch (gather + pinned copy, off; index copy + gather on the card, on), one "
+            f"value an epoch: {json.dumps(feed)}")
+
+        # ----------------------------------------------------------- (c)
+        first = Engine(EngineConfig(**{**base, "epoch": 1}, device_data="off", tag="c_"),
+                       device=dev, hand=model)
+        first.train()
+        saved = snapshot(first.state)
+        resumed = Engine(EngineConfig(**base, device_data="off",
+                                      restore_from_model=first.model_name),
+                         device=dev, hand=model)
+        if not same_state(snapshot(resumed.state), saved) or resumed.starting_epoch != 1:
+            fail(f"[12c] restored state differs from the saved one, or starts at epoch "
+                 f"{resumed.starting_epoch}")
+        b_off = runs["off"]
+        plan, plan_b = (e.index_plan(True, cfg.real_batch, 1) for e in (resumed, b_off))
+        same_plan = len(plan) == len(plan_b) and all(map(np.array_equal, plan, plan_b))
+
+        def flat(draws):
+            out = []
+            for x in draws:
+                if isinstance(x, torch.Tensor):
+                    out.append(x)
+                elif x is not None:
+                    out += flat(x)
+            return out
+
+        same_draws = all(all(torch.equal(x, y) for x, y in zip(flat(resumed.step_draws(1, it)),
+                                                               flat(b_off.step_draws(1, it))))
+                         for it in range(len(plan)))
+        if not (same_plan and same_draws):
+            fail(f"[12c] epoch 1's index plan ({same_plan}) or draws ({same_draws}) differ")
+        # The uninterrupted run's continuation of the saved state: its first
+        # step of epoch 1, which the resumed run's last record logs.
+        feed = first.batches(True, cfg.real_batch, 1)
+        _, batch1 = next(feed)
+        feed.close()
+        twin_loss = float(first.combined_step(1, 0, batch1)[0]["loss"])
+        resumed.train()
+        recs_c, recs_b, recs_on = finite(resumed, "c"), records(b_off), records(runs["on"])
+        loss_c, loss_b = recs_c[-1]["loss"], recs_b[-1]["loss"]
+        rel_b = abs(loss_c - loss_b) / abs(loss_b)
+        rel_on = abs(recs_on[-1]["loss"] - loss_b) / abs(loss_b)
+        param_diff = max(float((a - b).abs().max()) for a, b in
+                         zip(resumed.state.network.state_dict().values(),
+                             b_off.state.network.state_dict().values()))
+        rates["both (resumed)"] = resumed.steps_per_sec["both"]
+        log(f"[12c] restored state equal to the saved one bit for bit; resumed at epoch 1 with "
+            f"(b)'s index plan and draws; last logged loss {loss_c!r}, the uninterrupted "
+            f"continuation's {twin_loss!r}; against (b) off's {loss_b!r}: rel {rel_b:.3g} "
+            f"((b) on against (b) off, the same math: rel {rel_on:.3g}); final parameters max "
+            f"|diff| vs (b) off {param_diff:.3g}")
+        if not (recs_c[-1]["epoch"] == 1 and loss_c == twin_loss):
+            fail(f"[12c] resumed run's last record {recs_c[-1]} vs the uninterrupted "
+                 f"continuation's loss {twin_loss}")
+
+        # ----------------------------------------------------------- (d)
+        ckpt = os.path.join(b_off.model_path, "model_1.pt")
+        ev = Engine(EngineConfig(mode="Test", model_dir=model_dir, dataset_dir=data,
+                                 initial_model=ckpt, eval_precision="highest", tag="d_"),
+                    device=dev, hand=model)
+        reset()
+        result = ev.eval()
+        counts = launched(("sphere_fused_primal",), "d")
+        path = os.path.join(ev.model_path, "result.npz")
+        with np.load(path) as f:
+            gt, est = f["gt"], f["est"]
+        n_test = sizes["test"]
+        if gt.shape != (n_test, 36, 3) or est.shape != (n_test, 41, 3) or not np.isfinite(est).all():
+            fail(f"[12d] result.npz gt {gt.shape} est {est.shape}")
+        offline = evaluate_result_file(path, make_plot=False)
+        dms = NyuDataset(os.path.join(data, "test")).gather_dms(np.arange(n_test))[:, 0]
+        served = load_estimator(ckpt, device=dev, precision="highest").predict(dms)
+        serve_diff = float(np.abs(served - est).max())
+        log(f"[12d] eval: {json.dumps(result)}; launches {json.dumps(counts)}; result.npz gt "
+            f"{gt.shape} est {est.shape}; offline mean error {offline['mean_error']:.4f} mm; "
+            f"load_estimator vs eval joints max |diff| {serve_diff:.3g} mm")
+        if not (np.isfinite(offline["mean_error"]) and serve_diff <= EVAL_SERVE_MAX_MM):
+            fail(f"[12d] offline {offline['mean_error']}, served vs eval {serve_diff} mm")
+
+        # ----------------------------------------------------------- (e)
+        no_real = dict(mv_projection=False, mv_consistency=False, collision=False,
+                       bone_length=False, prior=False)
+        for tag, extra, names in (
+            ("synt", dict(no_real), ("raster_fast_pooled",)),
+            ("real", dict(synthesize=False, dataset_dir=small),
+             ("sphere_fused_fwd", "sphere_fused_bwd")),
+        ):
+            eng = Engine(EngineConfig(**{**base, "epoch": 1, **extra}, tag=f"e_{tag}_"),
+                         device=dev, hand=model)
+            reset()
+            eng.train()
+            counts = launched(names, f"e {tag}")
+            recs = finite(eng, f"e {tag}")
+            if eng.state.step != 2 or recs[-1]["mode"] != tag:
+                fail(f"[12e] {tag}-only epoch: step {eng.state.step}, records {recs}")
+            rates[tag] = eng.steps_per_sec[tag]
+            log(f"[12e] {tag}-only epoch, 2 steps: launches {json.dumps(counts)}; "
+                f"{json.dumps(recs[-1])}")
+
+        # ----------------------------------------------------------- (f)
+        cli_dir = os.path.join(tmp, "cli_runs")
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "spherehand_torch", "--mode", "Train", "--epoch", "1",
+             "--dataset_dir", data, "--model_dir", cli_dir, "--tag", "cli_"],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        made = [os.path.join(d, f) for d in (os.listdir(cli_dir) if os.path.isdir(cli_dir) else [])
+                for f in ("model_0.pt", "model_-1.pt")
+                if os.path.exists(os.path.join(cli_dir, d, f))]
+        if run.returncode != 0 or len(made) != 2:
+            fail(f"[12f] python -m spherehand_torch exited {run.returncode}, checkpoints {made}:\n"
+                 f"{run.stdout[-2000:]}\n{run.stderr[-2000:]}")
+        log(f"[12f] python -m spherehand_torch --mode Train --epoch 1: exit 0 in "
+            f"{time.perf_counter() - t0:.2f} s, checkpoints {made}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[12] steps/s by mode (StepTimer, one rate an epoch, the first step of each epoch "
+        f"not counted): {json.dumps(rates)} | {smi}; phase {time.perf_counter() - t_phase:.2f} s")
 
 
 def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
@@ -925,6 +1193,9 @@ def main() -> int:
     # --------------------------------------------------------------- 11
     launch_limits(raster_cuda, sphere_cuda, hand_planes, samples, sph_centers, sph_target,
                   sph_radii, size, num_views)
+
+    # --------------------------------------------------------------- 12
+    engine_phase(model, dev, args.seed, smi)
 
     print(json.dumps({"kernels": kernel_rows}))
     print(smi)

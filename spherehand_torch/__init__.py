@@ -3,15 +3,19 @@
 Same layer layout as the JAX package, so each counterpart is easy to find:
 
   hand/        assets + forward kinematics + linear blend skinning
-  data/        pose sampler, depth noise, synthetic batch generator
+  data/        pose sampler, depth noise, synthetic batch generator, the NYU
+               shards (offline crop pipeline, memmap loader, native binding)
   render/      triangle z-buffer (plain PyTorch + hand-written CUDA kernels
                in ``csrc/``), Gaussian joint heatmaps
   models/      hourglass CNN, pose denoiser, estimator forward
   ops/         soft-argmax 3D recovery
-  evaluation/  joint-error metrics, palm-pose adjustment
-  infer.py     ``PoseEstimator``, the serving surface
+  evaluation/  joint-error metrics, palm-pose adjustment, the offline evaluator
+  train/       steps, engine (epochs, checkpoints, eval), config, CLI
+  utils/       step timing and tracing
+  infer.py     ``PoseEstimator`` and ``load_estimator``, the serving surface
   convert.py   carries the JAX package's weights across
 
+``python -m spherehand_torch`` trains and evaluates (``train/cli.py``).
 Entry points default to ``torch.device("cuda")`` and raise on a machine
 without a GPU; tests pass ``device="cpu"`` and run the plain PyTorch path.
 Nothing here imports JAX or the JAX package.

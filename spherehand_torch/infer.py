@@ -4,8 +4,8 @@ Counterpart of ``spherehand_tpu/infer.py``: hourglass forward on scaled 64x64
 depth crops, soft-argmax recovery from the final stack, optional palm
 denoising and optional template palm adjustment. Large batches run as a loop
 over ``serve_chunk``-sized chunks, the last one padded (pad rows are dropped
-before returning). Data-parallel serving (``mesh=``) and ``load_estimator``
-(an Orbax checkpoint) are not ported yet.
+before returning). :func:`load_estimator` serves a checkpoint of the port's
+engine. Data-parallel serving (``mesh=``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import contextlib
 
 import numpy as np
 import torch
+from torch import nn
 
 from spherehand_torch.constants import Constants
 from spherehand_torch.convert import load_hourglass
@@ -45,7 +46,8 @@ class PoseEstimator:
     """Predictor around the port's hourglass and denoiser.
 
     params: flax hourglass params as nested numpy dicts (``load_params_npz``),
-        carried across by ``convert.load_hourglass``.
+        carried across by ``convert.load_hourglass``; or a port network
+        (``models.estimator.make_network``) holding its weights.
     num_stacks: stack count the params were trained with.
     denoise: apply the frozen palm denoiser MLP to the output.
     serve_chunk: batches above this size run chunk by chunk, the last chunk
@@ -61,7 +63,9 @@ class PoseEstimator:
         if precision not in (None, "highest"):
             raise ValueError(f"precision must be None or 'highest', got {precision!r}")
         self.device = resolve_device(device)
-        self.network = load_hourglass(make_network(num_stacks), params).to(self.device).eval()
+        network = params if isinstance(params, nn.Module) else load_hourglass(
+            make_network(num_stacks), params)
+        self.network = network.to(self.device).eval()
         self.denoiser = load_pose_denoiser(device=self.device) if denoise else None
         self.serve_chunk = serve_chunk
         self.precision = precision
@@ -124,3 +128,18 @@ def load_params_npz(path: str) -> dict:
                 node = node.setdefault(part, {})
             node[parts[-1]] = raw[key]
     return tree
+
+
+def load_estimator(checkpoint_path: str, num_stacks: int = 1, denoise: bool = True,
+                   device: torch.device | str | None = None,
+                   precision: str | None = None) -> PoseEstimator:
+    """A :class:`PoseEstimator` from a checkpoint of the port's engine
+    (``model_{epoch}.pt``, ``train.engine.Engine.save_checkpoint``); CUDA
+    by default. The JAX package's Orbax checkpoints are not read:
+    ``convert`` carries JAX parameters across as numpy."""
+    dev = resolve_device(device)
+    ckpt = torch.load(checkpoint_path, map_location=dev, weights_only=True)
+    network = make_network(num_stacks)
+    network.load_state_dict(ckpt["network"])
+    return PoseEstimator(network, num_stacks=num_stacks, denoise=denoise, precision=precision,
+                         device=dev)

@@ -31,7 +31,14 @@ depth, nearest distance) at the combined step's N = 225 images, the
 mutual-projection loss forward and backward from the estimator's joints in
 its unfused (per-field kernels) and fused form, and the train steps
 ``synt_step`` and ``combined_step``, each with its draws, and
-``eval_step``.
+``eval_step``. Last, the engine's combined step from NYU-format shards
+(:data:`ENGINE_SAMPLES` rendered hands written with ``data.nyu.write_shard``,
+initial weights): the batch from the host loader (``device_data`` off: a
+gather thread, pinned memory, an asynchronous copy) or from the
+device-resident split (on: an index copy and a gather on the card), the
+step's draws and the step, as ``Engine`` runs them; and the same step on
+one batch already on the card (``memory``, no feed). In turns (off, on,
+memory, memory, on, off), since host time drifts within a process.
 
 Usage: python -m spherehand_torch.profile_path
 
@@ -55,6 +62,10 @@ SEED = 0
 BATCHES = (128, 1024)
 CANVAS_BATCH = 32
 TOP = 6
+ENGINE_SAMPLES = 100
+# device_data off and on, and the same step on one batch already on the
+# card ("memory", no feed)
+ENGINE_TURNS = ("off", "on", "memory", "memory", "on", "off")
 # Prefixes of the runtime calls that each put one activity on the device.
 DEVICE_WORK_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cuMemcpy", "cudaMemset", "cuMemset")
 STREAM_SYNC_CALLS = ("cudaStreamSynchronize", "cuStreamSynchronize")
@@ -168,6 +179,7 @@ def main() -> int:
                               precision="highest", device=dev)
     _profile_render_and_serve(model, samples, estimator)
     _profile_train_steps(model)
+    _profile_engine(model)
     print(smi)
     return 0
 
@@ -279,6 +291,50 @@ def _profile_train_steps(model) -> None:
         row = {"piece": name, "batch": f"{cfg.synt_batch}+{cfg.real_batch}x{NUM_VIEWS}",
                **profile_piece(fn)}
         print(json.dumps(row), flush=True)
+
+
+def _profile_engine(model) -> None:
+    import tempfile
+
+    from spherehand_torch.data.nyu import write_shard
+    from spherehand_torch.data.pseudo_real import render_multiview_batch
+    from spherehand_torch.train.config import EngineConfig
+    from spherehand_torch.train.engine import Engine
+
+    dev = model.kp_radius.device
+    with tempfile.TemporaryDirectory() as tmp:
+        train = os.path.join(tmp, "nyu", "train")
+        os.makedirs(train)
+        real = render_multiview_batch(model, torch.Generator(device=dev).manual_seed(SEED),
+                                      ENGINE_SAMPLES)
+        write_shard(train, "mv_data_0",
+                    *(x.cpu().numpy() for x in (real.dms, real.gt_joints, real.poses)))
+        engines = {mode: Engine(EngineConfig(mode="Train", model_dir=os.path.join(tmp, "runs"),
+                                             dataset_dir=os.path.join(tmp, "nyu"),
+                                             device_data=mode), device=dev, hand=model)
+                   for mode in ("off", "on")}
+
+        def feed(engine):
+            epoch = 0
+            while True:
+                for it, (_, batch) in enumerate(engine.batches(True, engine.cfg.real_batch,
+                                                               epoch)):
+                    yield epoch, it, batch
+                epoch += 1
+
+        feeds = {mode: feed(engine) for mode, engine in engines.items()}
+        resident = next(feeds["on"])
+        steps = {mode: (lambda f=feeds[mode], e=engine: e.combined_step(*next(f)))
+                 for mode, engine in engines.items()}
+        steps["memory"] = lambda: engines["on"].combined_step(*resident)
+        for turn, mode in enumerate(ENGINE_TURNS):
+            cfg = engines["off"].cfg
+            row = {"piece": f"engine_combined_step_{mode}", "turn": turn,
+                   "batch": f"{cfg.synt_batch}+{cfg.real_batch}x3",
+                   **profile_piece(steps[mode])}
+            print(json.dumps(row), flush=True)
+        for batches in feeds.values():
+            batches.close()
 
 
 if __name__ == "__main__":

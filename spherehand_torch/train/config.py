@@ -1,12 +1,16 @@
-"""Engine configuration: the fields the train and eval steps read.
+"""Engine configuration: one dataclass, the fields of the CLI.
 
 Counterpart of ``spherehand_tpu/train/config.py`` (reference
-network/run_engine.py:9-31 flags, engine.py batch geometry). The engine's
-run-control and data-path fields arrive with the engine.
+network/run_engine.py:9-31 flags, engine.py batch geometry): the same
+fields with the same defaults. :func:`refuse_queued` names the switches
+whose ports are still queued; the engine and the CLI raise on them rather
+than ignore them.
 """
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 from spherehand_torch.losses.multitask import LossConfig
 
@@ -22,18 +26,43 @@ class EngineConfig:
     bone_length: bool = True
     prior: bool = True
 
+    # Run control (run_engine.py:17-30).
+    mode: str = "Test"  # "Train" | "Test"
+    model_dir: str = "runs"
+    initial_model: str | None = None  # a checkpoint file: weights only
+    restore_from_model: str | None = None  # a run name under model_dir: full resume
+    restore_from_epoch: int = -1  # -1 = the rolling latest checkpoint
     num_stacks: int = 1
     epoch: int = 75
+    dataset_dir: str = "data/nyu/npy-64"
+    depth_resample: int = 0  # 0 = off, else Gaussian kernel size (queued)
     lr: float = 1e-3
-    weight_decay: float = 1e-5
+    tag: str = ""
 
     # Batch geometry (engine.py:271-272,326-330).
     real_batch: int = 25
     synt_batch: int = 48
+    eval_batch: int = 8
+    synt_iters_per_epoch: int = 1000  # x num_stacks (engine.py:280)
+    mv_curriculum_iters: int = 1500  # is_mv window per epoch (engine.py:361)
 
+    seed: int = 0
+    weight_decay: float = 1e-5
+    data_parallel: bool = True  # one card here; more than one is queued
+    bf16: bool = False  # queued
+    mesh: str = "full"  # "full" | "lite" (queued)
     # "default": PyTorch's float32 defaults in the eval step (cuDNN may use
     # TF32 on the GPU); "highest": TF32 off, batch-invariant eval numbers.
     eval_precision: str = "default"
+    # Combined-epoch steps a call: K > 1 runs K plain steps in a row, the
+    # same math as 1 (the JAX package scans K steps in one dispatch).
+    steps_per_call: int = 1
+    # "auto" | "on" | "off": hold each real split on the device (uploaded
+    # once) and gather every batch there by index; batches equal the host
+    # loader's bit for bit. "auto" = on when the split fits
+    # device_data_max_gb.
+    device_data: str = "auto"
+    device_data_max_gb: float = 6.0
 
     @property
     def loss_config(self) -> LossConfig:
@@ -57,3 +86,20 @@ class EngineConfig:
         """StepLR: x0.1 every epoch // 3 epochs (engine.py:98-99)."""
         step_size = max(self.epoch // 3, 1)
         return self.lr * (0.1 ** (epoch // step_size))
+
+
+def refuse_queued(cfg: EngineConfig, device: torch.device) -> None:
+    """Raise ``ValueError`` for a switch whose port is still queued
+    (ROADMAP.md, Queue 1), naming its item."""
+    queued = []
+    if cfg.bf16:
+        queued.append("--bf16 (Queue 1 item 4)")
+    if cfg.mesh != "full":
+        queued.append(f"--mesh {cfg.mesh} (Queue 1 item 4)")
+    if cfg.depth_resample != 0:
+        queued.append(f"--depth_resample {cfg.depth_resample} (Queue 1 item 4)")
+    if cfg.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
+        queued.append(f"data parallelism over {torch.cuda.device_count()} cards "
+                      "(Queue 1 item 5; --no_data_parallel trains on one)")
+    if queued:
+        raise ValueError("not ported yet, see ROADMAP.md: " + "; ".join(queued))

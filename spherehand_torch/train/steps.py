@@ -102,7 +102,7 @@ class StepDraws(NamedTuple):
 
 class StepFns(NamedTuple):
     init_state: Any      # (generator) -> TrainState
-    draw: Any            # (generator, synt=True, real=True) -> StepDraws
+    draw: Any            # (generator, synt=True, real=True, real_rows=None) -> StepDraws
     synt_step: Any       # (state, lr, draws) -> (state, metrics)
     combined_step: Any   # (state, lr, draws, batch, is_mv) -> (state, metrics, vis)
     combined_grads: Any  # (state, draws, batch, is_mv, real_aug=True, synt=None)
@@ -153,11 +153,18 @@ def build_steps(cfg: EngineConfig, hand: HandModel | None = None,
             has_prev=torch.zeros((), dtype=torch.bool, device=dev),
         )
 
-    def draw(generator: torch.Generator, synt: bool = True, real: bool = True) -> StepDraws:
+    def draw(generator: torch.Generator, synt: bool = True, real: bool = True,
+             real_rows: int | None = None) -> StepDraws:
+        """The draws of one step. ``real_rows`` is the flat real batch
+        (batch x views) they are drawn for: ``None`` is the combined
+        step's ``real_batch x NUM_VIEWS``; the real-only and eval steps
+        draw for the batch they are given (``eval_batch x NUM_VIEWS`` in
+        the engine)."""
+        rows = num_real_rows if real_rows is None else real_rows
         poses = sample_poses(generator, cfg.synt_batch) if synt else None
         synthesis = draw_synthesis(generator, cfg.synt_batch) if synt else None
-        resize = draw_resize_scales(generator, num_real_rows) if real else None
-        noise = (tuple(draw_vae_noise(generator, num_real_rows) for _ in range(cfg.num_stacks))
+        resize = draw_resize_scales(generator, rows) if real else None
+        noise = (tuple(draw_vae_noise(generator, rows) for _ in range(cfg.num_stacks))
                  if real and cfg.prior else None)
         return StepDraws(poses, synthesis, resize, noise)
 

@@ -1,0 +1,95 @@
+"""The port's CLI (``python -m spherehand_torch``) against the JAX package's:
+the same flags and defaults, every field mapped, the queued switches
+refused."""
+import dataclasses
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from spherehand_tpu.train import cli as jcli  # noqa: E402
+from spherehand_torch.train import cli  # noqa: E402
+from spherehand_torch.train.config import EngineConfig, refuse_queued  # noqa: E402
+
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+FLAG_SETS = [
+    [],
+    ["--mode", "Train", "--synthesize", "--temporal", "--epoch", "3", "--lr", "3e-4"],
+    ["--mv_projection", "--mv_consistency", "--collision", "--bone_length", "--prior",
+     "--num_stacks", "2", "--tag", "x_", "--seed", "7", "--no_data_parallel"],
+    ["--mode", "Test", "--initial_model", "runs/a/model_3.pt", "--eval_batch", "4",
+     "--eval_precision", "highest", "--device_data", "off", "--dataset_dir", "d"],
+    ["--restore_from_model", "run1", "--restore_from_epoch", "5", "--real_batch", "5",
+     "--synt_batch", "6", "--steps_per_call", "4", "--model_dir", "m"],
+    ["--bf16", "--mesh", "lite", "--depth_resample", "3", "--device_data", "on"],
+]
+
+
+@pytest.mark.parametrize("argv", FLAG_SETS)
+def test_flags_and_defaults_equal_jax(argv):
+    ours = vars(cli.build_parser().parse_args(argv + ["--device", "cpu"]))
+    assert ours.pop("device") == "cpu"
+    assert ours == vars(jcli.build_parser().parse_args(argv))
+    assert cli.build_parser().parse_args(argv).device == "cuda"
+
+
+@pytest.mark.parametrize("argv", FLAG_SETS)
+def test_config_from_args_maps_every_field(argv):
+    ours = cli.config_from_args(cli.build_parser().parse_args(argv))
+    ref = jcli.config_from_args(jcli.build_parser().parse_args(argv))
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+
+
+def test_every_flag_reaches_its_field():
+    """Each flag, set away from its default, moves the configuration field
+    of its name (``--no_data_parallel``: ``data_parallel``)."""
+    parser = cli.build_parser()
+    base = dataclasses.asdict(cli.config_from_args(parser.parse_args([])))
+    assert base == dataclasses.asdict(EngineConfig())
+    values = {"mode": "Train", "mesh": "lite", "device_data": "on", "eval_precision": "highest"}
+    for action in parser._actions:
+        if action.dest in ("help", "device"):
+            continue
+        if action.nargs == 0:
+            argv = [action.option_strings[0]]
+        else:
+            value = values.get(action.dest, {int: "7", float: "0.5", str: "s"}[action.type or str])
+            argv = [action.option_strings[0], value]
+        field = "data_parallel" if action.dest == "no_data_parallel" else action.dest
+        got = dataclasses.asdict(cli.config_from_args(parser.parse_args(argv)))
+        assert {k for k in got if got[k] != base[k]} == {field}, argv
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--bf16"], "Queue 1 item 4"),
+    (["--mesh", "lite"], "Queue 1 item 4"),
+    (["--depth_resample", "5"], "Queue 1 item 4"),
+])
+def test_queued_switches_raise(argv, item, tmp_path):
+    with pytest.raises(ValueError, match=item):
+        cli.main(["--mode", "Train", "--device", "cpu", "--model_dir", str(tmp_path)] + argv)
+    assert not os.listdir(tmp_path)  # refused before a run directory exists
+
+
+def test_data_parallel_over_several_cards_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(ValueError, match="Queue 1 item 5"):
+        refuse_queued(EngineConfig(), torch.device("cuda"))
+    refuse_queued(EngineConfig(data_parallel=False), torch.device("cuda"))
+    refuse_queued(EngineConfig(), torch.device("cpu"))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    refuse_queued(EngineConfig(), torch.device("cuda"))
+
+
+def test_module_entry_point(tmp_path):
+    """``python -m spherehand_torch``: Test mode needs a model; without a
+    GPU the default device raises rather than running on the CPU."""
+    run = subprocess.run([sys.executable, "-m", "spherehand_torch", "--mode", "Test"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode != 0 and "requires --initial_model" in run.stderr
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main(["--mode", "Train", "--model_dir", str(tmp_path)])

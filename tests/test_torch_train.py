@@ -199,6 +199,64 @@ def test_eval_step_temporal_term_is_within_batch_like_jax(goldens, hand_model, p
     assert abs(float(moved) - float(ref["temporal_smooth"])) > 1e-3 * abs(float(moved))
 
 
+def test_eval_and_real_steps_draw_for_the_batch_they_are_given(hand_model, port_hand):
+    """``draw(real_rows=)`` sizes the resize and prior-noise draws by the
+    batch a step is given: at ``eval_batch`` 2 with ``real_batch`` 3, the
+    eval and real-only steps run on 2 x 3 rows (sized by ``real_batch``,
+    the noise was 9 rows and the prior raised on the shape), and their terms
+    equal JAX's ``multitask_loss`` on the same estimator outputs, real batch
+    and prior noise, at the tolerances of
+    ``test_eval_step_temporal_term_is_within_batch_like_jax``."""
+    from spherehand_tpu.losses import multitask as jmt
+    from spherehand_tpu.models import estimator as jest
+    from spherehand_tpu.models import pose_vae as jvae
+    from spherehand_torch.constants import Constants
+    from spherehand_torch.data.noise import resize_scales
+    from spherehand_torch.models.estimator import forward
+
+    cfg = EngineConfig(synt_batch=2, real_batch=3, eval_batch=2, eval_precision="highest")
+    fns = build_steps(cfg, hand=port_hand)
+    gen = torch.Generator().manual_seed(12)
+    state = fns.init_state(gen)
+    real = pseudo_real.render_multiview_batch(port_hand, gen, cfg.eval_batch)
+    batch = RealBatch(*real[:4])
+    rows = cfg.eval_batch * 3
+    assert fns.draw(gen).resize.base.shape[0] == cfg.real_batch * 3
+    draws = fns.draw(gen, synt=False, real_rows=rows)
+    assert draws.poses is None and draws.resize.base.shape[0] == rows
+    assert [n.shape for n in draws.vae_noise] == [(rows, 32)]
+    key = jax.random.key(13)
+    noise = _jax_row_noise(jax.random.split(key, 1)[0], rows)
+    draws = draws._replace(vae_noise=(torch.from_numpy(noise.copy()),))
+    target = {"real_dms": jnp.asarray(real.dms.numpy()),
+              "camera_poses": jnp.asarray(real.poses.numpy()),
+              "inv_camera_poses": jnp.asarray(real.inv_poses.numpy())}
+
+    def jax_terms(scales):
+        with torch.no_grad():
+            out = forward(state.network, real_dms=batch.dms * Constants().depth_scale,
+                          scales=scales)
+        parts = [tuple(jnp.asarray(x.numpy()) for x in getattr(out, k))
+                 for k in ("real_uv_hms", "real_d_hms", "real_xyz")]
+        terms, _, _ = jmt.multitask_loss(
+            jmt.LossConfig(), jest.EstimatorOutput((), (), (), *parts, None, (), ()),
+            hand_model.kp_radius, vae_params=jvae.load_pose_vae_params(), real_target=target,
+            rng=key, is_mv=jnp.asarray(True), prev_skel=jnp.zeros((3, 41, 3)),
+            has_prev=jnp.asarray(False))
+        return terms
+
+    checks = [(fns.eval_step(state, draws, batch)[0], jax_terms(None))]
+    ref_real = jax_terms(resize_scales(draws.resize))
+    state, metrics, _ = fns.real_step(state, 1e-3, draws, batch)
+    checks.append((metrics, ref_real))
+    assert state.step == 1
+    for ours, ref in checks:
+        assert set(ref) <= set(ours)
+        for name, value in ref.items():
+            np.testing.assert_allclose(np.asarray(ours[name]), np.asarray(value), atol=1e-6,
+                                       rtol=2e-4 if name == "mv_projection" else 1e-5)
+
+
 def test_init_matches_jax_initialisers_by_distribution():
     """Conv kernels U(+-sqrt(1/fan_in)) like flax variance_scaling(1/3,
     fan_in, uniform): per-layer std within 10 % of the JAX init's (layers of
