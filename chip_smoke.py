@@ -98,7 +98,34 @@ Phases, each fatal on failure:
          as a subprocess: exit 0 and a checkpoint;
      with steps/s by mode (StepTimer, one rate an epoch) and the host ms a
      batch of the host loader (gather, pinned copy) against the resident
-     split's gather.
+     split's gather;
+ 13. the engine's single-card switches, combined_term_diag and the priors
+     (EngineConfig defaults, the shipped weights, TF32 off where a
+     comparison is made):
+     (a) the lite mesh (1,700 faces) at B = 128: raster_fast_pooled and
+         raster_exact bit for bit against their plain versions; lite against
+         full on the same poses (IoU > 0.97, interior median < 0.5 mm, p95 <
+         5 mm: tests/test_lite_mesh.py's bar); render_depth_64 CUDA-event ms,
+         full and lite in turns; 3 synthetic steps on the lite mesh;
+     (b) bf16: 3 combined steps from the f32 run's state and draws, losses
+         finite, parameters and Adam moments float32, the fused sphere
+         forward and backward launched 3 times each, the first step's loss
+         within 2e-2 of the f32 run's (tests/test_torch_switches.py's bound);
+     (c) depth_resample 3 and 5: a combined and a real-only step each, the
+         kept share of pixels;
+     (d) combined_term_diag: at the default widths its per-term gradients
+         sum to combined_grads' norm within 1e-4 and the fused sphere
+         backward runs once per term that reaches it; card against CPU at
+         phase 8's geometry, every term's value and gradient norm within 5 %,
+         the largest gap named;
+     (e) train_pose_vae and train_pose_denoiser, 200 steps at batch 128, the
+         last loss below the first; build_pca_prior's core over 2^16 poses,
+         card against CPU (mean within 1e-3 mm, top-10 |cos| >= 0.999); the
+         shipped PCA prior's loss on 128 skeletons;
+     (f) segment_depth on 128 rendered hands equal to the CPU's;
+     and python -m spherehand_torch --mesh lite --bf16 --depth_resample 3
+     --epoch 1 on 50 rendered hands as a subprocess: exit 0, a checkpoint,
+     finite records.
 
 The last three lines of standard output are the kernels JSON line, the card's
 name and power limit, and the result line. Exits non-zero without a GPU.
@@ -214,6 +241,26 @@ TRAIN_STEPS = 3
 EVAL_SERVE_MAX_MM = 1e-2
 ENGINE_SPLITS = {"train": (50, 50), "test": (16,)}
 FEED_EPOCHS = 5
+# Phase 13. Lite against full render: tests/test_lite_mesh.py:122-160.
+LITE_IOU_MIN = 0.97
+LITE_MEDIAN_MAX = 0.5
+LITE_P95_MAX = 5.0
+# bf16 against f32, the first combined step's loss from the shipped weights:
+# the bound of tests/test_torch_switches.py (BF16_LOSS_REL; measured 4e-4 to
+# 3.3e-3 on the CPU at 2 + 1 x 3).
+BF16_LOSS_REL = 2e-2
+# combined_term_diag: the per-term gradients against combined_grads' (the
+# JAX test's bound, tests/test_term_diag.py), and each term's value and
+# gradient norm card against CPU (the 5 % of phase 8's gradient norms).
+TERM_SUM_REL = 1e-4
+TERM_GPU_CPU_REL = 5e-2
+SPHERE_TERMS = ("mv_projection",)  # the terms whose backward reaches the fused sphere op
+PRIOR_STEPS = 200
+PRIOR_BATCH = 128
+PCA_SAMPLES = 2 ** 16
+PCA_BATCH = 4096
+PCA_MEAN_MAX = 1e-3  # mm
+PCA_COS_MIN = 0.999
 
 
 def log(msg: str) -> None:
@@ -602,6 +649,289 @@ def engine_phase(model, dev, seed: int, smi: str) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[12] steps/s by mode (StepTimer, one rate an epoch, the first step of each epoch "
         f"not counted): {json.dumps(rates)} | {smi}; phase {time.perf_counter() - t_phase:.2f} s")
+
+
+def switches_phase(model, params, samples, dev, seed: int, smi: str) -> None:
+    """Phase 13: the engine's single-card switches (the lite mesh, bf16,
+    depth_resample), combined_term_diag card against CPU, the prior
+    trainers, the PCA prior and segment_depth, at the EngineConfig widths."""
+    import shutil
+    import tempfile
+
+    from spherehand_torch.data.nyu import write_shard
+    from spherehand_torch.data.pseudo_real import render_multiview_batch
+    from spherehand_torch.data.sampler import sample_poses
+    from spherehand_torch.data.synthesizer import draw_synthesis, synthesize, synthesize_from_draws
+    from spherehand_torch.convert import train_state_from_params
+    from spherehand_torch.hand import (apply_scale, draw_random_scale, forward_kinematics,
+                                       load_hand_model, load_pose_prior_pca,
+                                       project_faces_planes, skeleton_fk)
+    from spherehand_torch.infer import float32_precision
+    from spherehand_torch.losses.pca_prior import pca_prior_loss
+    from spherehand_torch.ops.segmentation import segment_depth
+    from spherehand_torch.render import contracts, raster_cuda, sphere_cuda
+    from spherehand_torch.render.raster import rasterize_depth, render_depth_64
+    from spherehand_torch.train.config import EngineConfig
+    from spherehand_torch.train.priors import (pca_prior_from_poses, train_pose_denoiser,
+                                               train_pose_vae)
+    from spherehand_torch.train.steps import RESAMPLE_RATIO, RealBatch, build_steps
+
+    def reset():
+        torch.cuda.synchronize()
+        raster_cuda.reset_launch_counts()
+        sphere_cuda.reset_launch_counts()
+
+    def counts() -> dict:
+        torch.cuda.synchronize()
+        return {k: v for k, v in {**raster_cuda.LAUNCHES, **sphere_cuda.LAUNCHES}.items() if v}
+
+    def finite(tag, metrics) -> dict:
+        vals = {k: float(v) for k, v in metrics.items()}
+        if not all(np.isfinite(v) for v in vals.values()):
+            fail(f"[13{tag}] a metric is not finite: {vals}")
+        return vals
+
+    def gen(offset: int, device=dev) -> torch.Generator:
+        return torch.Generator(device=device).manual_seed(seed + offset)
+
+    t_phase = time.perf_counter()
+    launches = {}
+    cfg = EngineConfig()
+    real = render_multiview_batch(model, gen(40), cfg.real_batch)
+    real_batch = RealBatch(*real[:4])
+
+    # ----------------------------------------------------------- (a)
+    lite = load_hand_model(device=dev, lite=True)
+    g = gen(41)
+    poses = sample_poses(g, MAIN_BATCH)
+    sdraws = draw_synthesis(g, MAIN_BATCH)
+    tr_lite = apply_scale(forward_kinematics(lite, poses), sdraws.scale_u, 0.1)
+    planes = project_faces_planes(lite, tr_lite, 640.0, sdraws.rand_f)
+    fv = torch.stack(planes, dim=-1).reshape(MAIN_BATCH, -1, 3, 3)
+    checks = {
+        "raster_fast_pooled": (raster_cuda.launch_raster_fast_pooled(planes, samples, samples, 100.0),
+                               raster_cuda.raster_fast_plain(*raster_cuda.prepass_fast(planes=planes),
+                                                             samples, samples, 100.0)),
+        "raster_exact": (raster_cuda.launch_raster_exact(planes, samples, samples, 640, 640),
+                         rasterize_depth(fv, samples, samples, 640, 640)),
+    }
+    torch.cuda.synchronize()
+    for name, (k, p) in checks.items():
+        if not contracts.same_bits(k, p):
+            fail(f"[13a] lite mesh: {name} vs its plain version max |diff| "
+                 f"{max_abs_diff(k, p)}, not bit for bit")
+    reset()
+    render_depth_64(lite, tr_lite, sdraws.rand_f)
+    render_depth_64(lite, tr_lite, sdraws.rand_f, exact=True)
+    launches["a render"] = counts()
+    tr_full = forward_kinematics(model, poses)
+    tr_plain = forward_kinematics(lite, poses)
+    d_full, d_lite = render_depth_64(model, tr_full), render_depth_64(lite, tr_plain)
+    fg_f, fg_l = d_full < 99.9, d_lite < 99.9
+    iou = float((fg_f & fg_l).sum() / (fg_f | fg_l).sum())
+    pad = d_full[:, None]
+    rng3 = (torch.nn.functional.max_pool2d(pad, 3, 1, 1)
+            + torch.nn.functional.max_pool2d(-pad, 3, 1, 1))[:, 0]
+    sel = fg_f & fg_l & (rng3 < 10.0)
+    d = (d_full - d_lite).abs()[sel]
+    median, p95 = float(d.median()), float(torch.quantile(d, 0.95))
+    fidelity = {"iou": iou, "interior_median_mm": median, "interior_p95_mm": p95,
+                "interior_pixels": int(sel.sum()), "faces": [model.num_faces, lite.num_faces]}
+    if not (iou > LITE_IOU_MIN and median < LITE_MEDIAN_MAX and p95 < LITE_P95_MAX):
+        fail(f"[13a] lite against full render: {fidelity}")
+    rand_f = sdraws.rand_f
+    tr_scaled_full = apply_scale(tr_full, sdraws.scale_u, 0.1)
+    timing = {}
+    for turn, (tag, hand, tr) in enumerate((("full", model, tr_scaled_full), ("lite", lite, tr_lite),
+                                            ("lite", lite, tr_lite), ("full", model, tr_scaled_full))):
+        timing[f"{tag}_{turn}"] = time_ms(lambda: render_depth_64(hand, tr, rand_f), REPS)
+    fns = build_steps(EngineConfig(mesh="lite"), hand=lite)
+    state = train_state_from_params(fns.init_state, params)
+    reset()
+    for _ in range(TRAIN_STEPS):
+        state, m = fns.synt_step(state, cfg.lr, fns.draw(g, real=False))
+        last = finite("a", m)
+    launches["a synt steps"] = counts()
+    log(f"[13a] lite mesh ({lite.num_faces} faces) at B={MAIN_BATCH}: raster_fast_pooled and "
+        f"raster_exact bit for bit against their plain versions; against the full mesh "
+        f"{json.dumps(fidelity)}; render_depth_64 fast ms in turns (full, lite, lite, full) "
+        f"{json.dumps(timing)}; {TRAIN_STEPS} synthetic steps, last {json.dumps(last)}; "
+        f"launches {json.dumps({k: launches[k] for k in ('a render', 'a synt steps')})}")
+
+    # ----------------------------------------------------------- (b)
+    step_draws = [build_steps(cfg, hand=model).draw(gen(42 + i)) for i in range(TRAIN_STEPS)]
+    losses = {}
+    for tag, bf16 in (("f32", False), ("bf16", True)):
+        fns = build_steps(EngineConfig(bf16=bf16), hand=model)
+        state = train_state_from_params(fns.init_state, params)
+        reset()
+        with float32_precision("highest"):
+            losses[tag] = [finite("b", fns.combined_step(state, cfg.lr, d, real_batch, True)[1])
+                           ["loss"] for d in step_draws]
+        launches[f"b {tag}"] = counts()
+    opt_dtypes = {v.dtype for s in state.optimizer.state.values() for k, v in s.items()
+                  if k != "step"}
+    param_dtypes = {p.dtype for p in state.network.parameters()}
+    gap = abs(losses["bf16"][0] - losses["f32"][0]) / abs(losses["f32"][0])
+    sb = launches["b bf16"]
+    log(f"[13b] bf16: {TRAIN_STEPS} combined steps from the shipped weights and the f32 run's "
+        f"draws; losses f32 {losses['f32']} bf16 {losses['bf16']}; first step's relative gap "
+        f"{gap:.4g} (bound {BF16_LOSS_REL}); parameters {sorted(map(str, param_dtypes))}, Adam "
+        f"moments {sorted(map(str, opt_dtypes))}; launches {json.dumps(sb)}")
+    if (gap > BF16_LOSS_REL or param_dtypes != {torch.float32} or opt_dtypes != {torch.float32}
+            or sb.get("sphere_fused_fwd") != TRAIN_STEPS
+            or sb.get("sphere_fused_bwd") != TRAIN_STEPS):
+        fail(f"[13b] bf16: gap {gap}, dtypes {param_dtypes} {opt_dtypes}, launches {sb}")
+
+    # ----------------------------------------------------------- (c)
+    for k in (3, 5):
+        fns = build_steps(EngineConfig(depth_resample=k), hand=model)
+        state = train_state_from_params(fns.init_state, params)
+        g = gen(50 + k)
+        reset()
+        d = fns.draw(g)
+        state, m_both, _ = fns.combined_step(state, cfg.lr, d, real_batch, True)
+        dr = fns.draw(g, synt=False)
+        state, m_real, _ = fns.real_step(state, cfg.lr, dr, real_batch)
+        vals = {"combined": finite("c", m_both)["loss"], "real": finite("c", m_real)["loss"]}
+        launches[f"c k={k}"] = counts()
+        kept = {"real": float((d.resample_real <= RESAMPLE_RATIO).float().mean()),
+                "synt": float((d.resample_synt <= RESAMPLE_RATIO).float().mean())}
+        log(f"[13c] depth_resample {k}: losses {json.dumps(vals)}; kept share of pixels "
+            f"{json.dumps(kept)}; launches {json.dumps(launches[f'c k={k}'])}")
+
+    # ----------------------------------------------------------- (d)
+    fns = build_steps(cfg, hand=model)
+    state = train_state_from_params(fns.init_state, params)
+    d = fns.draw(gen(60))
+    with float32_precision("highest"):
+        reset()
+        diag = fns.combined_term_diag(state, d, real_batch, True)
+        launches["d diag"] = counts()
+        _, terms, grads = fns.combined_grads(state, d, real_batch, True)
+    total = float(torch.sqrt(sum((g.double() ** 2).sum() for g in grads.values())))
+    sum_rel = abs(float(diag["total_grad_norm"]) - total) / total
+    reaching = [n for n in terms if n in SPHERE_TERMS]
+    sd = launches["d diag"]
+    log(f"[13d] combined_term_diag at {cfg.synt_batch} + {cfg.real_batch}x3 (TF32 off): the "
+        f"per-term gradients sum to combined_grads' norm within {sum_rel:.3g} (bound "
+        f"{TERM_SUM_REL}); launches {json.dumps(sd)}; terms reaching the sphere op {reaching}")
+    if not (sum_rel <= TERM_SUM_REL and sd.get("sphere_fused_fwd") == 1
+            and sd.get("sphere_fused_bwd") == len(reaching)):
+        fail(f"[13d] term diag sums {sum_rel}, launches {sd}, reaching {reaching}")
+    with np.load(GRAD_PARITY) as gold:
+        gp = [np.asarray(gold[k], np.float32) for k in ("real_dms", "real_poses", "real_inv_poses")]
+    small = EngineConfig(synt_batch=8, real_batch=gp[0].shape[0])
+    side_fns = {"gpu": build_steps(small, hand=model),
+                "cpu": build_steps(small, hand=load_hand_model(device="cpu"))}
+    draws = side_fns["cpu"].draw(torch.Generator().manual_seed(seed + 61))
+    gpu_draws = draws.to(dev)
+    synt = synthesize_from_draws(model, gpu_draws.poses, gpu_draws.synthesis)
+    sides = {}
+    t0 = time.perf_counter()
+    for side, sdev in (("gpu", dev), ("cpu", torch.device("cpu"))):
+        sfns = side_fns[side]
+        sstate = train_state_from_params(sfns.init_state, params)
+        sbatch = RealBatch(*(torch.as_tensor(a, device=sdev) for a in
+                             (gp[0], np.zeros(gp[0].shape[:2] + (36, 3), np.float32), gp[1], gp[2])))
+        with float32_precision("highest"):
+            sdiag = sfns.combined_term_diag(sstate, draws.to(sdev), sbatch, True,
+                                            synt=type(synt)(*(x.to(sdev) for x in synt)))
+        sides[side] = {k: float(v) for k, v in sdiag.items()}
+    gaps = {}
+    for key, ref in sides["cpu"].items():
+        if key.endswith("/cos_total"):
+            continue
+        got = sides["gpu"][key]
+        gaps[key] = 0.0 if got == ref else abs(got - ref) / max(abs(ref), 1e-30)
+    worst = max(gaps, key=gaps.get)
+    log(f"[13d] card against CPU at 8 + {gp[0].shape[0]}x3 (grad_parity_ab's real batch, TF32 "
+        f"off, {time.perf_counter() - t0:.2f} s): relative gaps {json.dumps(gaps)}; largest "
+        f"{worst} {gaps[worst]:.4g} (bound {TERM_GPU_CPU_REL}); card {json.dumps(sides['gpu'])}")
+    if gaps[worst] > TERM_GPU_CPU_REL:
+        fail(f"[13d] card against CPU term gap {worst} {gaps[worst]}")
+
+    # ----------------------------------------------------------- (e)
+    t0 = time.perf_counter()
+    trained = {}
+    for tag, train in (("vae", train_pose_vae), ("denoiser", train_pose_denoiser)):
+        _, loss = train(model, steps=PRIOR_STEPS, batch=PRIOR_BATCH, seed=seed, log_every=0)
+        loss = loss.cpu()
+        trained[tag] = [float(loss[0]), float(loss[-1])]
+        if not (bool(torch.isfinite(loss).all()) and loss[-1] < loss[0]):
+            fail(f"[13e] {tag}: losses {loss.tolist()[:3]} ... {loss.tolist()[-3:]}")
+    train_s = time.perf_counter() - t0
+    g = torch.Generator().manual_seed(seed + 62)
+    batches = [sample_poses(g, PCA_BATCH) for _ in range(PCA_SAMPLES // PCA_BATCH)]
+    t0 = time.perf_counter()
+    pca = {"gpu": pca_prior_from_poses(model, batches, 30)}
+    pca_s = time.perf_counter() - t0
+    pca["cpu"] = pca_prior_from_poses(load_hand_model(device="cpu"), batches, 30)
+    mean_diff = float(np.abs(pca["gpu"][0] - pca["cpu"][0]).max())
+    cos = np.abs(np.sum(pca["gpu"][1][:10] * pca["cpu"][1][:10], axis=1))
+    mean, comp = load_pose_prior_pca(device=dev)
+    g = gen(63)
+    skel = skeleton_fk(model, sample_poses(g, PRIOR_BATCH), draw_random_scale(g, PRIOR_BATCH))
+    prior = float(pca_prior_loss(mean, comp, skel))
+    prior_cpu = float(pca_prior_loss(mean.cpu(), comp.cpu(), skel.cpu()))
+    log(f"[13e] {PRIOR_STEPS} steps at batch {PRIOR_BATCH} (first, last loss): "
+        f"{json.dumps(trained)} in {train_s:.2f} s; build_pca_prior over {PCA_SAMPLES} samples "
+        f"({pca_s:.2f} s on the card): mean max |diff| card vs CPU {mean_diff:.3g} mm, top-10 "
+        f"|cos| min {float(cos.min()):.6f}; the shipped PCA prior's loss on {PRIOR_BATCH} "
+        f"skeletons {prior!r} (CPU {prior_cpu!r})")
+    if not (mean_diff <= PCA_MEAN_MAX and cos.min() >= PCA_COS_MIN and np.isfinite(prior)
+            and abs(prior - prior_cpu) <= 1e-4 * abs(prior_cpu)):
+        fail(f"[13e] PCA card vs CPU: mean {mean_diff}, cos {cos}, prior {prior} {prior_cpu}")
+
+    # ----------------------------------------------------------- (f)
+    g = gen(64)
+    synt = synthesize(model, g, sample_poses(g, MAIN_BATCH))
+    dms_mm = synt.dms * 100.0
+    seg = segment_depth(dms_mm, synt.xyz)
+    seg_cpu = segment_depth(dms_mm.cpu(), synt.xyz.cpu())
+    differ = int((seg.cpu() != seg_cpu).sum())
+    cut = float(((seg == 100.0) & (dms_mm < 100.0)).float().sum() / (dms_mm < 100.0).sum())
+    log(f"[13f] segment_depth on {MAIN_BATCH} rendered hands: {differ} pixels differ from the "
+        f"CPU's; share of foreground cut to background {cut:.4g}")
+    if differ:
+        fail(f"[13f] segment_depth card vs CPU: {differ} pixels differ")
+
+    # ------------------------------------------------------------- CLI
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_switches_")
+    try:
+        g = gen(65)
+        data = os.path.join(tmp, "nyu")
+        for subset, n in (("train", 2 * cfg.real_batch), ("test", cfg.eval_batch)):
+            os.makedirs(os.path.join(data, subset))
+            shard = render_multiview_batch(model, g, n)
+            write_shard(os.path.join(data, subset), "mv_data_0",
+                        *(x.cpu().numpy() for x in (shard.dms, shard.gt_joints, shard.poses)))
+        cli_dir = os.path.join(tmp, "runs")
+        argv = ["--mode", "Train", "--epoch", "1", "--dataset_dir", data, "--model_dir", cli_dir,
+                "--tag", "sw_", "--mesh", "lite", "--bf16", "--depth_resample", "3"]
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "spherehand_torch"] + argv, cwd=ROOT,
+                             capture_output=True, text=True, timeout=600)
+        runs = os.listdir(cli_dir) if os.path.isdir(cli_dir) else []
+        made = [r for r in runs if os.path.exists(os.path.join(cli_dir, r, "model_0.pt"))]
+        if run.returncode != 0 or len(made) != 1:
+            fail(f"[13] python -m spherehand_torch {' '.join(argv[10:])} exited {run.returncode}, "
+                 f"runs {runs}:\n{run.stdout[-2000:]}\n{run.stderr[-2000:]}")
+        with open(os.path.join(cli_dir, made[0], "config.json")) as f:
+            saved = json.load(f)
+        with open(os.path.join(cli_dir, made[0], "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        if (saved["mesh"], saved["bf16"], saved["depth_resample"]) != ("lite", True, 3) or not (
+                recs and all(np.isfinite(v) for r in recs for v in r.values()
+                             if isinstance(v, float))):
+            fail(f"[13] CLI run config {saved}, records {recs}")
+        log(f"[13] python -m spherehand_torch {' '.join(argv[10:])} --epoch 1 on "
+            f"{2 * cfg.real_batch} rendered hands: exit 0 in {time.perf_counter() - t0:.2f} s; "
+            f"last record {json.dumps(recs[-1])}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[13] launches by sub-phase (each counted from 0): {json.dumps(launches)} | {smi}; "
+        f"phase {time.perf_counter() - t_phase:.2f} s")
 
 
 def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
@@ -1196,6 +1526,9 @@ def main() -> int:
 
     # --------------------------------------------------------------- 12
     engine_phase(model, dev, args.seed, smi)
+
+    # --------------------------------------------------------------- 13
+    switches_phase(model, params, samples, dev, args.seed, smi)
 
     print(json.dumps({"kernels": kernel_rows}))
     print(smi)

@@ -2,15 +2,19 @@
 
 Same layer layout as the JAX package, so each counterpart is easy to find:
 
-  hand/        assets + forward kinematics + linear blend skinning
+  hand/        assets (full and lite mesh, PCA prior) + forward kinematics +
+               linear blend skinning + skeleton-only FK
   data/        pose sampler, depth noise, synthetic batch generator, the NYU
                shards (offline crop pipeline, memmap loader, native binding)
   render/      triangle z-buffer (plain PyTorch + hand-written CUDA kernels
                in ``csrc/``), Gaussian joint heatmaps
-  models/      hourglass CNN, pose denoiser, estimator forward
-  ops/         soft-argmax 3D recovery
+  models/      hourglass CNN (float32 or bfloat16 convolutions), pose VAE and
+               denoiser, estimator forward
+  losses/      the multi-task loss stack, the PCA pose prior
+  ops/         soft-argmax 3D recovery, joint-guided segmentation
   evaluation/  joint-error metrics, palm-pose adjustment, the offline evaluator
-  train/       steps, engine (epochs, checkpoints, eval), config, CLI
+  train/       steps, engine (epochs, checkpoints, eval), config, CLI, the
+               offline prior trainers
   utils/       step timing and tracing
   infer.py     ``PoseEstimator`` and ``load_estimator``, the serving surface
   convert.py   carries the JAX package's weights across

@@ -10,7 +10,10 @@
   reference ``nn.Sequential`` indices.
 - Back to flax: :func:`flax_arrays` maps a ``HourglassNet`` state (weights
   or gradients) onto the flax keys and layouts, so that the port's
-  gradients compare with the JAX package's.
+  gradients compare with the JAX package's; :func:`flax_params` gives the
+  nested flax param tree of a ``PoseVae`` or ``PoseDenoiser`` (their
+  submodules carry the flax names), which ``train.priors`` saves, and
+  :func:`load_flax_params` reads such a tree back.
 
 Each conversion consumes every source array and sets every module parameter
 and buffer, or raises.
@@ -74,7 +77,7 @@ def hourglass_state_dict(params: dict) -> dict[str, torch.Tensor]:
     for path, array in flatten_params(params).items():
         *mods, leaf = path.split("/")
         name, value = _flax_to_torch(leaf, array)
-        state[".".join(mods + [name])] = torch.from_numpy(np.ascontiguousarray(value))
+        state[".".join(mods + [name])] = torch.from_numpy(np.array(value, order="C"))
     return state
 
 
@@ -84,21 +87,47 @@ def load_hourglass(module: nn.Module, params: dict) -> nn.Module:
 
 
 def flax_arrays(named: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
-    """``HourglassNet`` entries ({'a.b.weight': tensor}, e.g. parameters or
-    their gradients) -> {'a/b/kernel': array} in flax layout: conv weight
-    OIHW -> kernel HWIO, GroupNorm weight -> scale."""
+    """Module entries ({'a.b.weight': tensor}, e.g. parameters or their
+    gradients) -> {'a/b/kernel': array} in flax layout: conv weight OIHW ->
+    kernel HWIO, Dense weight (out, in) -> kernel (in, out), GroupNorm
+    weight -> scale."""
     out = {}
     for name, tensor in named.items():
         *mods, leaf = name.split(".")
         array = tensor.detach().cpu().numpy()
         if leaf == "weight" and array.ndim == 4:
             leaf, array = "kernel", array.transpose(2, 3, 1, 0)
+        elif leaf == "weight" and array.ndim == 2:
+            leaf, array = "kernel", np.ascontiguousarray(array.T)
         elif leaf == "weight" and array.ndim == 1:
             leaf = "scale"
         elif leaf != "bias":
             raise ValueError(f"no flax counterpart for {name} {array.shape}")
         out["/".join(mods + [leaf])] = array
     return out
+
+
+def flax_params(module: nn.Module) -> dict:
+    """The nested flax param tree ({'enc0': {'dense': {'kernel': ...}}}) of
+    a module whose submodules carry the flax names (``PoseVae``,
+    ``PoseDenoiser``); buffers (the denoiser's index tables) are not
+    parameters and stay out, as in flax."""
+    tree: dict = {}
+    for path, array in flax_arrays(dict(module.named_parameters())).items():
+        *mods, leaf = path.split("/")
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = array
+    return tree
+
+
+def load_flax_params(module: nn.Module, params: dict) -> nn.Module:
+    """A flax param tree (as :func:`flax_params` gives) -> ``module``'s
+    parameters; its buffers keep their values."""
+    state = {**hourglass_state_dict(params), **dict(module.named_buffers())}
+    _load_exact(module, state)
+    return module
 
 
 def train_state_from_params(init_state, params: dict):

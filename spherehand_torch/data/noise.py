@@ -1,19 +1,20 @@
 """Depth-map sensor noise and the train-time resize-crop augmentation.
 
-Counterpart of ``depth_pixel_noise``, ``resize_crop`` and
-``sample_resize_scales`` in ``spherehand_tpu/data/noise.py`` (reference
-network/util_modules.py:60-84,383-424, create_network_and_criterion.py:42-48).
+Counterpart of ``depth_pixel_noise``, ``depth_resample``, ``resize_crop``
+and ``sample_resize_scales`` in ``spherehand_tpu/data/noise.py`` (reference
+network/util_modules.py:10-84,383-424, create_network_and_criterion.py:42-48).
 Following the port's RNG rule, each stochastic function is a draw step from
-a ``torch.Generator`` (:func:`draw_pixel_noise`,
+a ``torch.Generator`` (:func:`draw_pixel_noise`, :func:`draw_depth_resample`,
 :func:`draw_resize_scales`) and a deterministic core that takes the draws
-(:func:`apply_pixel_noise`, :func:`resize_scales`). ``depth_resample`` is
-off by default and not ported yet.
+(:func:`apply_pixel_noise`, :func:`depth_resample`, :func:`resize_scales`).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 # Offsets are trunc(N(0.5, 0.5)); the JAX package bounds them to [-2, 3]
 # (P(outside) ~ 3e-7 per axis) and so does the port.
@@ -64,6 +65,42 @@ def depth_pixel_noise(generator: torch.Generator, dms: torch.Tensor) -> torch.Te
     """Draw step + core."""
     draws = draw_pixel_noise(generator, dms.shape)
     return apply_pixel_noise(dms, PixelNoiseDraws(*(d.to(dms.device) for d in draws)))
+
+
+_GAUSS = {
+    3: np.asarray([[1, 2, 1], [2, 6, 2], [1, 2, 1]], np.float32),
+    5: np.asarray([[1, 4, 7, 4, 1], [4, 16, 26, 16, 4], [7, 26, 41, 26, 7],
+                   [4, 16, 26, 16, 4], [1, 4, 7, 4, 1]], np.float32),
+}
+
+
+def draw_depth_resample(generator: torch.Generator, n: int, size: int = 64) -> torch.Tensor:
+    """U[0, 1) draws of the pixel dropout, (n, size, size), on the
+    generator's device."""
+    return torch.rand((n, size, size), generator=generator, device=generator.device)
+
+
+def depth_resample(dms: torch.Tensor, uniforms: torch.Tensor, sample_ratio: float = 0.95,
+                   kernel_size: int = 3) -> torch.Tensor:
+    """Drop the pixels whose draw exceeds ``sample_ratio`` to background
+    (1.0), then blur with the normalised 3x3 or 5x5 Gaussian.
+
+    dms (B, H, W) scaled units, uniforms (B, H, W). The blur pads with 0, as
+    the JAX package's convolution does, so border pixels blur toward 0. It
+    is a sum of shifted planes in float32 on every device (no cuDNN, so no
+    TF32). Off by default (run_engine.py:27)."""
+    if kernel_size not in _GAUSS:
+        raise ValueError(f"depth_resample takes kernel_size 3 or 5, got {kernel_size}")
+    kern = (_GAUSS[kernel_size] / _GAUSS[kernel_size].sum()).tolist()
+    dropped = torch.where(uniforms <= sample_ratio, dms, torch.ones_like(dms))
+    pad = kernel_size // 2
+    padded = F.pad(dropped, (pad, pad, pad, pad))
+    height, width = dms.shape[-2:]
+    out = torch.zeros_like(dms)
+    for i, row in enumerate(kern):
+        for j, w in enumerate(row):
+            out = out + padded[:, i:i + height, j:j + width] * w
+    return out
 
 
 class ResizeDraws(NamedTuple):

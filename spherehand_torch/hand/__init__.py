@@ -1,6 +1,10 @@
 """Hand model: assets, forward kinematics, linear blend skinning."""
 
-from spherehand_torch.hand.assets import HandModel, load_hand_model  # noqa: F401
+from spherehand_torch.hand.assets import (  # noqa: F401
+    HandModel,
+    load_hand_model,
+    load_pose_prior_pca,
+)
 from spherehand_torch.hand.kinematics import forward_kinematics  # noqa: F401
 from spherehand_torch.hand.skinning import (  # noqa: F401
     apply_random_scale,
@@ -14,3 +18,4 @@ from spherehand_torch.hand.skinning import (  # noqa: F401
     orthographic_project_xyz,
     project_faces_planes,
 )
+from spherehand_torch.hand.skeleton import skeleton_fk  # noqa: F401

@@ -5,7 +5,9 @@ immutable record loaded once from ``assets/hand_model.npz`` and passed
 explicitly into the kinematics, rendering and loss functions.
 
 Model facts: 10,144 homogeneous vertices, 3,382 triangles, 17 bones and 41
-skinned sphere keypoints with fixed radii (11 palm + 6 per finger).
+skinned sphere keypoints with fixed radii (11 palm + 6 per finger). The lite
+mesh (``assets/hand_model_lite.npz``, ``lite=True``) has the same bones,
+keypoints and spheres on 877 vertices and 1,700 triangles.
 """
 from __future__ import annotations
 
@@ -78,16 +80,20 @@ def load_hand_model(
     path: str | None = None,
     right_hand: bool = True,
     device: torch.device | str | None = None,
+    lite: bool = False,
 ) -> HandModel:
     """Load ``hand_model.npz`` as float32 tensors onto ``device`` (CUDA by
-    default).
+    default); ``lite`` loads ``hand_model_lite.npz``, the decimated mesh for
+    synthetic renders (bones, keypoints, spheres and ``raster_valid_frac``
+    from the same file).
 
     The triangle index columns 0/1 are swapped for the right hand so the
     winding stays front-facing after the LBS x-negation.
     """
     dev = resolve_device(device)
     if path is None:
-        path = os.path.join(DEFAULT_ASSET_DIR, "hand_model.npz")
+        name = "hand_model_lite.npz" if lite else "hand_model.npz"
+        path = os.path.join(DEFAULT_ASSET_DIR, name)
     with np.load(path, allow_pickle=False) as raw:
         vertices = raw["vertices"].astype(np.float32)
         faces = raw["faces"].astype(np.int64)
@@ -122,3 +128,15 @@ def load_hand_model(
         right_hand=right_hand,
         raster_valid_frac=valid_frac,
     )
+
+
+def load_pose_prior_pca(path: str | None = None, device: torch.device | str | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The PCA pose prior (mean (123,), components (K, 123)) on ``device``
+    (reference mesh/model/pose_prior.pkl, ``assets/pose_prior_pca.npz``)."""
+    dev = resolve_device(device)
+    if path is None:
+        path = os.path.join(DEFAULT_ASSET_DIR, "pose_prior_pca.npz")
+    with np.load(path) as raw:
+        return (torch.as_tensor(raw["mean"], device=dev),
+                torch.as_tensor(raw["components"], device=dev))

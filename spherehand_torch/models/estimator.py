@@ -36,8 +36,10 @@ class EstimatorOutput(NamedTuple):
     real_latent: tuple  # each (Br*V, C, h, w)
 
 
-def make_network(num_stacks: int) -> HourglassNet:
-    return HourglassNet(num_stacks=num_stacks, num_outputs=2 * _C.num_joints)
+def make_network(num_stacks: int, dtype: torch.dtype = torch.float32) -> HourglassNet:
+    """``dtype``: the convolutions' compute dtype (``torch.bfloat16`` for
+    ``--bf16``); heads, soft-argmax and the loss stack stay float32."""
+    return HourglassNet(num_stacks=num_stacks, num_outputs=2 * _C.num_joints, dtype=dtype)
 
 
 def forward(

@@ -45,8 +45,12 @@ class PoseVae(nn.Module):
         h = self.enc1(self.enc0(x))
         mu, logvar = self.mu(h), self.logvar(h)
         z = mu if noise is None else mu + noise * (torch.exp(0.5 * logvar) * 0.1)
-        recon = self.dec_out(self.dec1(self.dec0(z)))
+        recon = self.decode(z)
         return recon, mu, logvar, self.likelihood(x, recon, mu, logvar)
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        """Latent (B, 32) -> pose (B, 123)."""
+        return self.dec_out(self.dec1(self.dec0(z)))
 
     @staticmethod
     def likelihood(x, recon, mu, logvar) -> torch.Tensor:

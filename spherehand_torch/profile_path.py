@@ -39,8 +39,13 @@ device-resident split (on: an index copy and a gather on the card), the
 step's draws and the step, as ``Engine`` runs them; and the same step on
 one batch already on the card (``memory``, no feed). In turns (off, on,
 memory, memory, on, off), since host time drifts within a process.
+Then the single-card switches, each beside its baseline in turns (full,
+lite, lite, full; f32, bf16, resample, resample, bf16, f32): the lite mesh's
+``render_depth_64`` fast at B = 128 and ``synt_step``, and ``combined_step``
+under ``bf16`` and ``depth_resample`` 3, from the shipped weights; and
+``combined_term_diag`` once.
 
-Usage: python -m spherehand_torch.profile_path
+Usage: python -m spherehand_torch.profile_path [--sections render train engine switches]
 
 Needs a CUDA device. Exits non-zero without one, or when the profiler
 records no device activity for a piece in ``TRACE_ATTEMPTS`` traces.
@@ -158,9 +163,15 @@ def profile_piece(fn, calls: int = CALLS) -> dict:
 
 
 def main() -> int:
+    import argparse
+
     if not torch.cuda.is_available():
         print("profile_path: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
+    sections = ("render", "train", "engine", "switches")
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--sections", nargs="+", choices=sections, default=list(sections))
+    args = ap.parse_args()
 
     from spherehand_torch.hand.assets import load_hand_model
     from spherehand_torch.infer import PoseEstimator, load_params_npz
@@ -177,9 +188,14 @@ def main() -> int:
     samples = torch.as_tensor(bilinear_sample_positions(64, 10), device=dev)
     estimator = PoseEstimator(load_params_npz(PARAMS), num_stacks=1, denoise=True,
                               precision="highest", device=dev)
-    _profile_render_and_serve(model, samples, estimator)
-    _profile_train_steps(model)
-    _profile_engine(model)
+    if "render" in args.sections:
+        _profile_render_and_serve(model, samples, estimator)
+    if "train" in args.sections:
+        _profile_train_steps(model)
+    if "engine" in args.sections:
+        _profile_engine(model)
+    if "switches" in args.sections:
+        _profile_switches(model)
     print(smi)
     return 0
 
@@ -335,6 +351,55 @@ def _profile_engine(model) -> None:
             print(json.dumps(row), flush=True)
         for batches in feeds.values():
             batches.close()
+
+
+def _profile_switches(model) -> None:
+    from spherehand_torch.convert import train_state_from_params
+    from spherehand_torch.data.pseudo_real import render_multiview_batch
+    from spherehand_torch.data.sampler import sample_poses
+    from spherehand_torch.data.synthesizer import draw_synthesis
+    from spherehand_torch.hand.assets import load_hand_model
+    from spherehand_torch.hand.kinematics import forward_kinematics
+    from spherehand_torch.hand.skinning import apply_scale
+    from spherehand_torch.infer import load_params_npz
+    from spherehand_torch.render.raster import render_depth_64
+    from spherehand_torch.train.config import EngineConfig
+    from spherehand_torch.train.steps import NUM_VIEWS, RealBatch, build_steps
+
+    dev = model.kp_radius.device
+    lite = load_hand_model(device=dev, lite=True)
+    meshes = {"full": model, "lite": lite}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    poses = sample_poses(gen, BATCHES[0])
+    draws = draw_synthesis(gen, BATCHES[0])
+    tr = {k: apply_scale(forward_kinematics(m, poses), draws.scale_u, 0.1)
+          for k, m in meshes.items()}
+    for turn, mesh in enumerate(("full", "lite", "lite", "full")):
+        row = {"piece": f"render_fast_{mesh}", "batch": BATCHES[0], "turn": turn,
+               **profile_piece(lambda: render_depth_64(meshes[mesh], tr[mesh], draws.rand_f))}
+        print(json.dumps(row), flush=True)
+
+    params = load_params_npz(PARAMS)
+    cfgs = {"full": EngineConfig(), "lite": EngineConfig(mesh="lite"),
+            "f32": EngineConfig(), "bf16": EngineConfig(bf16=True),
+            "resample3": EngineConfig(depth_resample=3)}
+    fns = {k: build_steps(c, hand=meshes[c.mesh]) for k, c in cfgs.items()}
+    states = {k: train_state_from_params(f.init_state, params) for k, f in fns.items()}
+    cfg = cfgs["f32"]
+    batch = RealBatch(*render_multiview_batch(model, gen, cfg.real_batch)[:4])
+    shape = f"{cfg.synt_batch}+{cfg.real_batch}x{NUM_VIEWS}"
+    for turn, key in enumerate(("full", "lite", "lite", "full")):
+        row = {"piece": f"synt_step_{key}", "batch": shape, "turn": turn, **profile_piece(
+            lambda: fns[key].synt_step(states[key], cfg.lr, fns[key].draw(gen, real=False)))}
+        print(json.dumps(row), flush=True)
+    for turn, key in enumerate(("f32", "bf16", "resample3", "resample3", "bf16", "f32")):
+        row = {"piece": f"combined_step_{key}", "batch": shape, "turn": turn, **profile_piece(
+            lambda: fns[key].combined_step(states[key], cfg.lr, fns[key].draw(gen), batch, True))}
+        print(json.dumps(row), flush=True)
+    row = {"piece": "combined_term_diag", "batch": shape, **profile_piece(
+        lambda: fns["f32"].combined_term_diag(states["f32"], fns["f32"].draw(gen), batch, True),
+        calls=3)}
+    print(json.dumps(row), flush=True)
 
 
 if __name__ == "__main__":

@@ -3,9 +3,9 @@ same names and defaults, plus ``--device``.
 
 As in the reference (``network/run_engine.py:9-31``), the loss toggles are
 default-on ``store_false`` flags: passing ``--synthesize`` DISABLES
-synthesis. Switches whose ports are still queued (``--bf16``, ``--mesh
-lite``, ``--depth_resample`` other than 0, data parallelism over more than
-one card) raise a ``ValueError`` naming their ROADMAP item.
+synthesis. Data parallelism over more than one card, whose port is still
+queued, raises a ``ValueError`` naming its ROADMAP item (``--no_data_parallel``
+trains on one card).
 
 Usage:
     python -m spherehand_torch --mode Train --model_dir runs \\
@@ -53,9 +53,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--no_data_parallel", action="store_true")
     p.add_argument("--bf16", action="store_true",
-                   help="bfloat16 conv compute (not ported yet)")
+                   help="bfloat16 conv compute (parameters, heads and losses float32)")
     p.add_argument("--mesh", default="full", choices=["full", "lite"],
-                   help="hand mesh for synthetic renders (lite: not ported yet)")
+                   help="hand mesh for synthetic renders (lite: 1,700 faces)")
     p.add_argument("--steps_per_call", default=1, type=int,
                    help="combined-epoch steps a call (runs as plain steps; same math as 1)")
     p.add_argument("--device_data", default="auto", choices=["auto", "on", "off"],

@@ -2,9 +2,9 @@
 
 Counterpart of ``spherehand_tpu/train/config.py`` (reference
 network/run_engine.py:9-31 flags, engine.py batch geometry): the same
-fields with the same defaults. :func:`refuse_queued` names the switches
-whose ports are still queued; the engine and the CLI raise on them rather
-than ignore them.
+fields with the same defaults. :func:`refuse_queued` names the one switch
+whose port is still queued (data parallelism over more than one card); the
+engine and the CLI raise on it rather than ignore it.
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ class EngineConfig:
     num_stacks: int = 1
     epoch: int = 75
     dataset_dir: str = "data/nyu/npy-64"
-    depth_resample: int = 0  # 0 = off, else Gaussian kernel size (queued)
+    depth_resample: int = 0  # 0 = off, else the Gaussian kernel size, 3 or 5
     lr: float = 1e-3
     tag: str = ""
 
@@ -49,8 +49,8 @@ class EngineConfig:
     seed: int = 0
     weight_decay: float = 1e-5
     data_parallel: bool = True  # one card here; more than one is queued
-    bf16: bool = False  # queued
-    mesh: str = "full"  # "full" | "lite" (queued)
+    bf16: bool = False  # bfloat16 convolutions (parameters and losses float32)
+    mesh: str = "full"  # "full" | "lite" (the decimated mesh for synthetic renders)
     # "default": PyTorch's float32 defaults in the eval step (cuDNN may use
     # TF32 on the GPU); "highest": TF32 off, batch-invariant eval numbers.
     eval_precision: str = "default"
@@ -92,12 +92,6 @@ def refuse_queued(cfg: EngineConfig, device: torch.device) -> None:
     """Raise ``ValueError`` for a switch whose port is still queued
     (ROADMAP.md, Queue 1), naming its item."""
     queued = []
-    if cfg.bf16:
-        queued.append("--bf16 (Queue 1 item 4)")
-    if cfg.mesh != "full":
-        queued.append(f"--mesh {cfg.mesh} (Queue 1 item 4)")
-    if cfg.depth_resample != 0:
-        queued.append(f"--depth_resample {cfg.depth_resample} (Queue 1 item 4)")
     if cfg.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
         queued.append(f"data parallelism over {torch.cuda.device_count()} cards "
                       "(Queue 1 item 5; --no_data_parallel trains on one)")

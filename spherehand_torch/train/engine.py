@@ -144,7 +144,10 @@ class Engine:
         self.cfg = cfg
         self.device = resolve_device(device)
         refuse_queued(cfg, self.device)
-        self.hand = load_hand_model(device=self.device) if hand is None else hand
+        # "lite": the decimated mesh (the same bones, keypoints and spheres;
+        # only the synthetic raster sees fewer faces), engine.py:127-130.
+        self.hand = (load_hand_model(device=self.device, lite=cfg.mesh == "lite")
+                     if hand is None else hand)
         self.steps = build_steps(cfg, self.hand, device=self.device)
         # Initialised from a CPU generator: the same weights on every device.
         self.state = self.steps.init_state(torch.Generator().manual_seed(cfg.seed + 1))

@@ -16,19 +16,30 @@ sphere op and its CUDA kernels), backpropagates and takes one Adam step.
   GroupNorm 1 / 0, as the JAX network (models/hourglass.py:28-34).
 - Draws: every stochastic input comes from :func:`StepFns.draw` with a
   ``torch.Generator`` (poses, synthesis draws with the pixel noise, resize
-  scales, VAE noise); the step functions are deterministic in them.
-  ``combined_grads`` also takes a ready synthetic batch (``synt=``).
+  scales, VAE noise, and with ``cfg.depth_resample`` the pixel-dropout
+  uniforms, drawn last and only then, so the other draws do not move); the
+  step functions are deterministic in them. ``combined_grads`` and
+  ``combined_term_diag`` also take a ready synthetic batch (``synt=``).
+- ``depth_resample`` (``cfg.depth_resample`` 3 or 5) drops and blurs the
+  synthetic depth of the synthetic and combined steps and the real batch of
+  the combined and real-only steps, where the JAX steps apply it
+  (steps.py:151-161,201-207,290-296,391-395); never the eval step's.
 - State: the network and optimizer update in place (PyTorch's way; the JAX
   step returns new buffers); each step returns the state it was given.
 - Precision: the train steps run at PyTorch's float32 defaults (cuDNN
   convolutions may use TF32 on the GPU); the eval step honours
-  ``cfg.eval_precision`` through ``infer.float32_precision``.
+  ``cfg.eval_precision`` through ``infer.float32_precision``. ``cfg.bf16``
+  computes the network's convolutions in bfloat16 (a module dtype,
+  ``models/hourglass.py``), as the JAX ``make_network(dtype=bfloat16)``:
+  parameters, Adam state, heads, the loss stack and every geometry op stay
+  float32; under ``eval_precision="highest"`` the eval step computes the
+  convolutions in float32 too (the JAX ``eval_network``).
 
-``combined_term_diag``, bf16 and padded (data-parallel) synthetic batches
-are not ported yet.
+Padded (data-parallel) synthetic batches are not ported yet.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, NamedTuple
@@ -37,7 +48,13 @@ import torch
 from torch import nn
 
 from spherehand_torch.constants import Constants
-from spherehand_torch.data.noise import ResizeDraws, draw_resize_scales, resize_scales
+from spherehand_torch.data.noise import (
+    ResizeDraws,
+    depth_resample,
+    draw_depth_resample,
+    draw_resize_scales,
+    resize_scales,
+)
 from spherehand_torch.data.sampler import sample_poses
 from spherehand_torch.data.synthesizer import (
     SynthesisDraws,
@@ -57,6 +74,7 @@ from spherehand_torch.train.config import EngineConfig
 
 _C = Constants()
 NUM_VIEWS = 3  # views per real sample (the NYU rig; steps.py:134 of the JAX package)
+RESAMPLE_RATIO = 0.95  # depth_resample's kept share (steps.py:104 of the JAX package)
 
 
 @dataclasses.dataclass
@@ -87,6 +105,8 @@ class StepDraws(NamedTuple):
     synthesis: SynthesisDraws | None       # scale, focal jitter, pixel noise
     resize: ResizeDraws | None             # resize-crop draws, (Br*V,)
     vae_noise: tuple | None                # per stack, (Br*V, 32)
+    resample_real: torch.Tensor | None = None  # (Br*V, 64, 64) dropout uniforms
+    resample_synt: torch.Tensor | None = None  # (Bs, 64, 64)
 
     def to(self, device) -> "StepDraws":
         """The same draws on ``device``."""
@@ -107,6 +127,8 @@ class StepFns(NamedTuple):
     combined_step: Any   # (state, lr, draws, batch, is_mv) -> (state, metrics, vis)
     combined_grads: Any  # (state, draws, batch, is_mv, real_aug=True, synt=None)
     #                      -> (loss, terms, {parameter name: gradient})
+    combined_term_diag: Any  # (state, draws, batch, is_mv, real_aug=True, synt=None)
+    #                          -> flat dict of scalars
     real_step: Any       # (state, lr, draws, batch) -> (state, metrics, vis)
     eval_step: Any       # (state, draws, batch) -> (metrics, denoised view-0 joints)
 
@@ -129,22 +151,68 @@ def init_like_jax(network: nn.Module, generator: torch.Generator) -> nn.Module:
     return network
 
 
+@contextlib.contextmanager
+def _conv_dtype(network: nn.Module, dtype: torch.dtype):
+    """Compute ``network``'s convolutions in ``dtype`` for the duration."""
+    saved = network.dtype
+    network.set_dtype(dtype)
+    try:
+        yield
+    finally:
+        network.set_dtype(saved)
+
+
+def _global_dot(a: list[torch.Tensor], b: list[torch.Tensor]) -> torch.Tensor:
+    """<a, b> over lists of float32 tensors, accumulated in float64 and
+    returned in float32 (float32 sums over the network's 2.3M parameters
+    drift by 1e-5 to 1e-4)."""
+    return sum((x.double() * y.double()).sum() for x, y in zip(a, b)).float()
+
+
+def _global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
+    """The global L2 norm of a list of tensors (``optax.global_norm``)."""
+    return torch.sqrt(sum((x.double() ** 2).sum() for x in tensors)).float()
+
+
+@torch.no_grad()
+def adam_direction_norm(optimizer: torch.optim.Adam, grads: dict) -> torch.Tensor:
+    """Global norm of the Adam direction that ``grads`` ({parameter:
+    gradient}) would take at the optimizer's current state, the state left
+    as it is: ``optax.add_decayed_weights`` -> ``scale_by_adam`` (the moments
+    updated with the gradient plus weight decay, bias-corrected at count + 1,
+    eps 1e-8), without the learning rate."""
+    directions = []
+    for group in optimizer.param_groups:
+        beta1, beta2 = group["betas"]
+        for p in group["params"]:
+            g = grads[p] + group["weight_decay"] * p
+            st = optimizer.state.get(p, {})
+            count = float(st.get("step", 0.0)) + 1.0
+            m = beta1 * st.get("exp_avg", torch.zeros_like(p)) + (1 - beta1) * g
+            v = beta2 * st.get("exp_avg_sq", torch.zeros_like(p)) + (1 - beta2) * g * g
+            directions.append(
+                (m / (1 - beta1 ** count)) / (torch.sqrt(v / (1 - beta2 ** count)) + group["eps"]))
+    return _global_norm(directions)
+
+
 def build_steps(cfg: EngineConfig, hand: HandModel | None = None,
                 device: torch.device | str | None = None) -> StepFns:
     """The step functions for ``cfg`` on ``device`` (CUDA by default; the
-    hand model's device when one is given)."""
+    hand model's device when one is given; the mesh ``cfg.mesh`` names when
+    none is)."""
     dev = hand.kp_radius.device if hand is not None and device is None else resolve_device(device)
     if hand is None:
-        hand = load_hand_model(device=dev)
+        hand = load_hand_model(device=dev, lite=cfg.mesh == "lite")
     loss_cfg = cfg.loss_config
     vae = load_pose_vae_model(device=dev) if cfg.prior else None
     denoiser = load_pose_denoiser(device=dev)
     radii = hand.kp_radius
     eval_precision = "highest" if cfg.eval_precision == "highest" else None
     num_real_rows = cfg.real_batch * NUM_VIEWS
+    net_dtype = torch.bfloat16 if cfg.bf16 else torch.float32
 
     def init_state(generator: torch.Generator) -> TrainState:
-        network = init_like_jax(make_network(cfg.num_stacks), generator).to(dev)
+        network = init_like_jax(make_network(cfg.num_stacks, dtype=net_dtype), generator).to(dev)
         optimizer = torch.optim.Adam(network.parameters(), lr=cfg.lr,
                                      weight_decay=cfg.weight_decay)
         return TrainState(
@@ -159,26 +227,38 @@ def build_steps(cfg: EngineConfig, hand: HandModel | None = None,
         (batch x views) they are drawn for: ``None`` is the combined
         step's ``real_batch x NUM_VIEWS``; the real-only and eval steps
         draw for the batch they are given (``eval_batch x NUM_VIEWS`` in
-        the engine)."""
+        the engine). The resample draws come last, and only with
+        ``cfg.depth_resample``."""
         rows = num_real_rows if real_rows is None else real_rows
         poses = sample_poses(generator, cfg.synt_batch) if synt else None
         synthesis = draw_synthesis(generator, cfg.synt_batch) if synt else None
         resize = draw_resize_scales(generator, rows) if real else None
         noise = (tuple(draw_vae_noise(generator, rows) for _ in range(cfg.num_stacks))
                  if real and cfg.prior else None)
-        return StepDraws(poses, synthesis, resize, noise)
+        resample = cfg.depth_resample != 0
+        rs_real = draw_depth_resample(generator, rows) if resample and real else None
+        rs_synt = draw_depth_resample(generator, cfg.synt_batch) if resample and synt else None
+        return StepDraws(poses, synthesis, resize, noise, rs_real, rs_synt)
+
+    def _resample(dms: torch.Tensor, uniforms: torch.Tensor | None) -> torch.Tensor:
+        if not cfg.depth_resample:
+            return dms
+        flat = dms.reshape(-1, *dms.shape[-2:])
+        return depth_resample(flat, uniforms, RESAMPLE_RATIO, cfg.depth_resample).reshape(dms.shape)
 
     def _synt(draws: StepDraws, synt: SyntheticBatch | None) -> SyntheticBatch:
-        if synt is not None:
-            return synt
-        return synthesize_from_draws(hand, draws.poses, draws.synthesis, add_noise=True)
+        if synt is None:
+            synt = synthesize_from_draws(hand, draws.poses, draws.synthesis, add_noise=True)
+        return synt._replace(dms=_resample(synt.dms, draws.resample_synt))
+
+    def _scaled_real(draws: StepDraws, batch: RealBatch) -> torch.Tensor:
+        return _resample(batch.dms * _C.depth_scale, draws.resample_real)
 
     def _real_target(batch: RealBatch) -> dict:
         return {"real_dms": batch.dms, "camera_poses": batch.poses,
                 "inv_camera_poses": batch.inv_poses}
 
-    def _loss(state, synt, batch, scales, draws, is_mv):
-        scaled_real = None if batch is None else batch.dms * _C.depth_scale
+    def _terms(state, synt, batch, scaled_real, scales, draws, is_mv):
         out = forward(state.network, synt_dms=None if synt is None else synt.dms,
                       real_dms=scaled_real, scales=scales)
         terms, _, new_prev = multitask_loss(
@@ -188,7 +268,11 @@ def build_steps(cfg: EngineConfig, hand: HandModel | None = None,
             prev_skel=state.prev_skel, has_prev=state.has_prev,
             real_weights=None if batch is None else batch.weights,
         )
-        return combine_loss(terms), terms, out, new_prev, scaled_real
+        return terms, out, new_prev
+
+    def _loss(state, synt, batch, scaled_real, scales, draws, is_mv):
+        terms, out, new_prev = _terms(state, synt, batch, scaled_real, scales, draws, is_mv)
+        return combine_loss(terms), terms, out, new_prev
 
     def _backward(state, loss):
         state.network.zero_grad(set_to_none=True)
@@ -209,7 +293,7 @@ def build_steps(cfg: EngineConfig, hand: HandModel | None = None,
     def synt_step(state: TrainState, lr: float, draws: StepDraws):
         """Synthetic-only pretraining step (engine.py:265-316)."""
         synt = _synt(draws, None)
-        loss, terms, out, _, _ = _loss(state, synt, None, None, draws, True)
+        loss, terms, out, _ = _loss(state, synt, None, None, None, draws, True)
         _backward(state, loss)
         _apply_updates(state, lr)
         metrics = _metrics(loss, terms)
@@ -217,10 +301,14 @@ def build_steps(cfg: EngineConfig, hand: HandModel | None = None,
             out.synt_xyz[-1].detach() - synt.xyz, dim=-1).mean()
         return state, metrics
 
-    def _combined(state, draws, batch, is_mv, real_aug, synt):
+    def _combined_inputs(draws, batch, real_aug, synt):
         synt = _synt(draws, synt)
         scales = resize_scales(draws.resize) if real_aug else None
-        loss, terms, out, new_prev, scaled_real = _loss(state, synt, batch, scales, draws, is_mv)
+        return synt, _scaled_real(draws, batch), scales
+
+    def _combined(state, draws, batch, is_mv, real_aug, synt):
+        synt, scaled_real, scales = _combined_inputs(draws, batch, real_aug, synt)
+        loss, terms, out, new_prev = _loss(state, synt, batch, scaled_real, scales, draws, is_mv)
         _backward(state, loss)
         return loss, terms, out, new_prev, synt, scaled_real
 
@@ -232,6 +320,45 @@ def build_steps(cfg: EngineConfig, hand: HandModel | None = None,
         loss, terms, *_ = _combined(state, draws, batch, is_mv, real_aug, synt)
         grads = {name: p.grad for name, p in state.network.named_parameters()}
         return loss.detach(), {k: v.detach() for k, v in terms.items()}, grads
+
+    def combined_term_diag(state: TrainState, draws: StepDraws, batch: RealBatch, is_mv,
+                           real_aug: bool = True, synt: SyntheticBatch | None = None) -> dict:
+        """Per-term gradient attribution of the combined objective
+        (steps.py:263-350 of the JAX package): one forward, then one
+        backward per loss term (``torch.autograd.grad``, the graph kept).
+        A flat dict of 0-d tensors: ``<term>/value``, ``<term>/grad_norm``
+        (the global L2 norm of that term's parameter gradient alone) and
+        ``<term>/cos_total`` (its cosine with the total gradient), plus
+        ``total_grad_norm``, ``update_norm`` (the global norm of the Adam
+        direction at the current optimizer state, the state unchanged; the
+        applied step is lr x this) and ``param_norm``. The total is the sum
+        of the terms' gradients. No parameter's ``.grad`` is touched."""
+        synt, scaled_real, scales = _combined_inputs(draws, batch, real_aug, synt)
+        terms, _, _ = _terms(state, synt, batch, scaled_real, scales, draws, is_mv)
+        params = list(state.network.parameters())
+        names = sorted(terms)
+        grads_of = {}
+        for i, name in enumerate(names):
+            term = terms[name]
+            if term.requires_grad:
+                grads = torch.autograd.grad(term, params, retain_graph=i < len(names) - 1,
+                                            allow_unused=True)
+            else:
+                grads = (None,) * len(params)
+            grads_of[name] = [torch.zeros_like(p) if g is None else g
+                              for p, g in zip(params, grads)]
+        total = [sum(grads_of[name][k] for name in names) for k in range(len(params))]
+        total_norm = _global_norm(total)
+        diag = {"total_grad_norm": total_norm}
+        for name in names:
+            g = grads_of[name]
+            n = _global_norm(g)
+            diag[f"{name}/value"] = terms[name].detach()
+            diag[f"{name}/grad_norm"] = n
+            diag[f"{name}/cos_total"] = _global_dot(g, total) / (n * total_norm + 1e-30)
+        diag["update_norm"] = adam_direction_norm(state.optimizer, dict(zip(params, total)))
+        diag["param_norm"] = _global_norm([p.detach() for p in params])
+        return diag
 
     def combined_step(state: TrainState, lr: float, draws: StepDraws, batch: RealBatch, is_mv):
         """Mixed synthetic + real self-supervised step (engine.py:318-436)."""
@@ -256,7 +383,8 @@ def build_steps(cfg: EngineConfig, hand: HandModel | None = None,
     def real_step(state: TrainState, lr: float, draws: StepDraws, batch: RealBatch):
         """Real-data-only self-supervised step (engine.py:150-263, Train mode)."""
         scales = resize_scales(draws.resize)
-        loss, terms, out, new_prev, scaled_real = _loss(state, None, batch, scales, draws, True)
+        scaled_real = _scaled_real(draws, batch)
+        loss, terms, out, new_prev = _loss(state, None, batch, scaled_real, scales, draws, True)
         _backward(state, loss)
         _apply_updates(state, lr, new_prev)
         metrics = _metrics(loss, terms)
@@ -274,8 +402,10 @@ def build_steps(cfg: EngineConfig, hand: HandModel | None = None,
         It carries no temporal state, as the JAX eval step passes none: with
         ``temporal`` on, rows 1..B-1 are measured against their
         predecessors and row 0 against nothing (a zero skeleton, no
-        previous batch), whatever the train state carries."""
-        with float32_precision(eval_precision):
+        previous batch), whatever the train state carries. Its input is
+        never resampled."""
+        eval_dtype = torch.float32 if eval_precision else state.network.dtype
+        with float32_precision(eval_precision), _conv_dtype(state.network, eval_dtype):
             scaled_real = batch.dms * _C.depth_scale
             out = forward(state.network, real_dms=scaled_real)
             last = out.real_xyz[-1]
@@ -295,5 +425,5 @@ def build_steps(cfg: EngineConfig, hand: HandModel | None = None,
             batch.gt_joints[:, 0], est, weights=batch.weights)
         return metrics, denoised
 
-    return StepFns(init_state, draw, synt_step, combined_step, combined_grads, real_step,
-                   eval_step)
+    return StepFns(init_state, draw, synt_step, combined_step, combined_grads,
+                   combined_term_diag, real_step, eval_step)

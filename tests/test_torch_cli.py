@@ -1,11 +1,13 @@
 """The port's CLI (``python -m spherehand_torch``) against the JAX package's:
-the same flags and defaults, every field mapped, the queued switches
-refused."""
+the same flags and defaults, every field mapped, the single-card switches
+run, data parallelism over several cards refused."""
 import dataclasses
+import json
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -13,6 +15,7 @@ torch = pytest.importorskip("torch")
 from spherehand_tpu.train import cli as jcli  # noqa: E402
 from spherehand_torch.train import cli  # noqa: E402
 from spherehand_torch.train.config import EngineConfig, refuse_queued  # noqa: E402
+from spherehand_torch.train.engine import Engine  # noqa: E402
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 FLAG_SETS = [
@@ -26,6 +29,17 @@ FLAG_SETS = [
      "--synt_batch", "6", "--steps_per_call", "4", "--model_dir", "m"],
     ["--bf16", "--mesh", "lite", "--depth_resample", "3", "--device_data", "on"],
 ]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: these tests run many small
+    CPU ops, which a parallel region slows down when the suite's workers
+    share the cores; the previous count is restored after the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("argv", FLAG_SETS)
@@ -69,9 +83,29 @@ def test_every_flag_reaches_its_field():
     (["--depth_resample", "5"], "Queue 1 item 4"),
 ])
 def test_queued_switches_raise(argv, item, tmp_path):
-    with pytest.raises(ValueError, match=item):
-        cli.main(["--mode", "Train", "--device", "cpu", "--model_dir", str(tmp_path)] + argv)
-    assert not os.listdir(tmp_path)  # refused before a run directory exists
+    """The switches once queued under ``item`` are ported and no longer
+    raise: each flag, parsed by ``config_from_args``, passes
+    ``refuse_queued`` and trains one synthetic epoch on the CPU through the
+    ``Engine`` (``synt_iters_per_epoch`` 1 and synt 2, set on the parsed
+    configuration: the CLI has no flag for them), with finite metrics and
+    the switch in effect."""
+    args = cli.build_parser().parse_args(
+        ["--mode", "Train", "--device", "cpu", "--model_dir", str(tmp_path)] + argv)
+    cfg = cli.config_from_args(args)
+    refuse_queued(cfg, torch.device(args.device))
+    cfg = dataclasses.replace(cfg, synt_iters_per_epoch=1, synt_batch=2, real_batch=1)
+    engine = Engine(cfg, device=args.device)
+    engine._epoch_synt(0)
+    with open(engine.metrics_file) as f:
+        records = [json.loads(line) for line in f]
+    assert records and all(np.isfinite(v) for r in records for v in r.values()
+                           if isinstance(v, float)), (item, records)
+    assert engine.hand.num_faces == (1700 if cfg.mesh == "lite" else 3382)
+    assert engine.state.network.dtype == (torch.bfloat16 if cfg.bf16 else torch.float32)
+    assert all(p.dtype == torch.float32 for p in engine.state.network.parameters())
+    draws = engine.step_draws(0, 0, real=False)
+    assert (draws.resample_synt is not None) == (cfg.depth_resample != 0)
+    assert engine.state.step == 1
 
 
 def test_data_parallel_over_several_cards_raises(monkeypatch):
