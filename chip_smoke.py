@@ -125,12 +125,44 @@ Phases, each fatal on failure:
      (f) segment_depth on 128 rendered hands equal to the CPU's;
      and python -m spherehand_torch --mesh lite --bf16 --depth_resample 3
      --epoch 1 on 50 rendered hands as a subprocess: exit 0, a checkpoint,
-     finite records.
+     finite records;
+ 14. data parallelism on the one card this script needs (NCCL between two
+     cards is not run here):
+     (a) 2 gloo ranks sharing the card (spawned, file rendezvous,
+         spherehand_torch.parallel.check) against one device: combined_grads
+         at 8 synthetic + 3 x 3 real rows, the real batch padded to 4 (one
+         row at weight 0), real_aug off, TF32 off: the loss within 1e-5
+         relative and each term within 1e-5 of the loss, every gradient within 5e-3 of its tensor's largest
+         entry; 2 combined steps leave both ranks' parameters equal bit for
+         bit; the combined step's CUDA-event ms at 48 + 25 x 3 on each rank
+         and on one device, and the gloo gradient sum's;
+     (b) the engine as 2 ranks on the card through the CLI under python -m
+         torch.distributed.run --nproc_per_node 2 (gloo), on shards of 75 + 16
+         of phase 12's rendered hands at the default widths (24 + 24
+         synthetic, 13 + 13 real rows, one pad row): 3 combined steps with
+         finite records, parameters equal on both ranks bit for bit, one
+         checkpoint by rank 0, raster_fast_pooled and the fused sphere
+         forward and backward launched in each rank; then --mode Test on 2
+         ranks: result.npz of the test split's 16 rows, the fused primal
+         launched in each rank, joints within 1e-2 mm of one rank's eval of
+         the same checkpoint (eval_precision highest);
+     (c) one NCCL rank: combined_grads' loss and terms equal the ungrouped
+         call's bit for bit and NCCL's sum returns the gradients bit for
+         bit (the gradients' gap to the ungrouped backward printed beside a
+         second ungrouped backward's, the card's atomics);
+     (d) PoseEstimator(devices=[cuda:0, cuda:0]) at B = 257, serve_chunk
+         128, precision "highest": within 1e-3 mm of one device, pad rows
+         gone;
+     (e) python -m spherehand_torch.doctor: every check passes;
+ 15. python -m spherehand_torch.bench once: its line holds every key of
+     bench.py plus the card's name and power limit, all numbers finite.
 
 The last three lines of standard output are the kernels JSON line, the card's
 name and power limit, and the result line. Exits non-zero without a GPU.
 
 Usage: python3 chip_smoke.py [--seed 0]
+(``--rank_report DIR -- <CLI arguments>`` is phase 14(b)'s rank mode,
+started by torch.distributed.run.)
 """
 from __future__ import annotations
 
@@ -261,6 +293,30 @@ PCA_SAMPLES = 2 ** 16
 PCA_BATCH = 4096
 PCA_MEAN_MAX = 1e-3  # mm
 PCA_COS_MIN = 0.999
+# Phase 14: data parallelism on the one card. (a) 2 gloo ranks against one
+# device at 8 synthetic + 3 x 3 real rows (padded to 4): the loss relative
+# (each term against the loss), gradients against their tensor's largest entry (JAX's bound,
+# tests/test_parallel.py:138-155); (b) the engine as 2 ranks over shards of
+# phase 12's hands cut to 3 combined steps (75 train samples), eval against
+# one rank's eval of the same checkpoint (phase 12's limit); (d) serving
+# over 2 replicas at B = 2 x 128 + 1 against one device.
+P14_SYNT = 8
+P14_CHECKS = ("grads", "steps", "timing")
+P14_LOSS_REL = 1e-5
+P14_SPLITS = {"train": (38, 37), "test": (16,)}
+P14_TRAIN_KERNELS = ("raster_fast_pooled", "sphere_fused_fwd", "sphere_fused_bwd")
+P14_EVAL_KERNELS = ("sphere_fused_primal",)
+P14_EVAL_MM = 1e-2
+P14_SERVE = 257
+P14_SERVE_CHUNK = 128
+P14_SERVE_MM = 1e-3
+P14_TIMEOUT_S = 300
+P15_TIMEOUT_S = 600
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "mesh", "full_exact_fps", "lite_fps",
+              "lite_exact_fps", "train_combined_steps_per_sec",
+              "train_combined_bf16_steps_per_sec", "train_epoch_steps_per_sec",
+              "train_epoch_bf16_steps_per_sec", "batch", "health_dispatch_rtt_ms",
+              "health_device_get_mbps", "gpu_name", "gpu_power_limit")
 
 
 def log(msg: str) -> None:
@@ -934,6 +990,229 @@ def switches_phase(model, params, samples, dev, seed: int, smi: str) -> None:
         f"phase {time.perf_counter() - t_phase:.2f} s")
 
 
+def engine_rank_child(report_dir: str, argv: list[str]) -> int:
+    """One rank of phase 14(b), started by ``torch.distributed.run``: the
+    CLI (``spherehand_torch.train.cli.main``) with the kernels' launch
+    counts set to 0 before it; writes the rank's parameters and counts."""
+    sys.path.insert(0, ROOT)
+    from spherehand_torch.render import raster_cuda, sphere_cuda
+    from spherehand_torch.train import cli
+
+    raster_cuda.reset_launch_counts()
+    sphere_cuda.reset_launch_counts()
+    engine = cli.main(argv)
+    torch.cuda.synchronize()
+    rank = int(os.environ["RANK"])
+    torch.save({"network": {k: v.cpu() for k, v in engine.state.network.state_dict().items()},
+                "launches": {**raster_cuda.LAUNCHES, **sphere_cuda.LAUNCHES},
+                "backend": engine.group.backend, "device": str(engine.group.device)},
+               os.path.join(report_dir, f"rank{rank}_{argv[argv.index('--mode') + 1]}.pt"))
+    return 0
+
+
+def parallel_phase(model, params, dev, seed: int, smi: str) -> None:
+    """Phase 14: data parallelism on the one card (TF32 off where numbers
+    are compared)."""
+    import concurrent.futures
+    import shutil
+    import tempfile
+
+    from spherehand_torch.data.nyu import NyuDataset, write_shard
+    from spherehand_torch.data.pseudo_real import render_multiview_batch
+    from spherehand_torch.data.sampler import sample_poses
+    from spherehand_torch.hand.kinematics import forward_kinematics
+    from spherehand_torch.infer import PoseEstimator
+    from spherehand_torch.parallel import check
+    from spherehand_torch.render.raster import render_depth_64
+    from spherehand_torch.train.config import EngineConfig
+    from spherehand_torch.train.engine import Engine
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    doctor = side = None
+    try:
+        # ----------------------------------------------------------- (a)
+        t0 = time.perf_counter()
+        out = os.path.join(tmp, "a")
+        os.makedirs(out)
+        ranks = check.launch(2, out, device="cuda", checks=P14_CHECKS, backend="gloo",
+                             synt_batch=P14_SYNT, timeout_s=P14_TIMEOUT_S)
+        ref = check.reference(dev, checks=P14_CHECKS, hand=model, synt_batch=P14_SYNT)
+        timing = {f"rank{r}": {k.split("/")[1]: float(v) for k, v in got.items()
+                               if k.startswith("timing/")} for r, got in enumerate(ranks)}
+        timing["one device"] = float(ref["timing/step_ms"])
+        log(f"[14a] combined step at 48 + 25 x 3 (TF32 default), median CUDA-event ms of "
+            f"{check.TIMING_STEPS} after {check.TIMING_WARMUP}, each of 2 gloo ranks on the one "
+            f"card against one device, and the gloo gradient sum: {json.dumps(timing)} | {smi}")
+        try:
+            worst = check.compare(ranks, ref, loss_rtol=P14_LOSS_REL, terms_against_loss=True)
+        except AssertionError as exc:
+            fail(f"[14a] two gloo ranks against one device: {exc}")
+        log(f"[14a] 2 gloo ranks on one card, {P14_SYNT} synthetic + {check.REAL_SAMPLES} x 3 "
+            f"real padded to 4 (one row at weight 0), real_aug off: worst gaps "
+            f"{json.dumps(worst)} (loss <= {P14_LOSS_REL}, gradients <= "
+            f"{check.GRAD_SCALE_TOL} of scale, parameters after 2 steps equal across ranks) "
+            f"in {time.perf_counter() - t0:.2f} s")
+
+        # (c) and (e) run beside (b), which times nothing: (a) ran alone.
+        t_side = time.perf_counter()
+        out_c = os.path.join(tmp, "c")
+        os.makedirs(out_c)
+        side = concurrent.futures.ThreadPoolExecutor(1)
+        nccl_future = side.submit(check.launch, 1, out_c, device="cuda", checks=("identity",),
+                                  backend="nccl", synt_batch=P14_SYNT, timeout_s=P14_TIMEOUT_S)
+        doctor = subprocess.Popen([sys.executable, "-m", "spherehand_torch.doctor"], cwd=ROOT,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+        # ----------------------------------------------------------- (b)
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(seed + 20)  # phase 12's hands
+        data = os.path.join(tmp, "nyu")
+        for subset, sizes in P14_SPLITS.items():
+            os.makedirs(os.path.join(data, subset))
+            for i, n in enumerate(sizes):
+                real = render_multiview_batch(model, gen, n)
+                write_shard(os.path.join(data, subset), f"mv_data_{i}",
+                            *(x.cpu().numpy() for x in (real.dms, real.gt_joints, real.poses)))
+        model_dir, report = os.path.join(tmp, "runs"), os.path.join(tmp, "report")
+        os.makedirs(report)
+
+        def torchrun(argv) -> None:
+            cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                   "--nproc_per_node", "2", os.path.abspath(__file__), "--rank_report", report,
+                   "--", *argv, "--dataset_dir", data, "--model_dir", model_dir,
+                   "--eval_precision", "highest"]
+            run = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                                 timeout=P14_TIMEOUT_S)
+            if run.returncode != 0:
+                fail(f"[14b] torchrun {' '.join(argv)} exited {run.returncode}:\n"
+                     f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+
+        torchrun(["--mode", "Train", "--epoch", "1", "--tag", "dp_"])
+        runs = sorted(os.listdir(model_dir))
+        ckpts = [os.path.join(model_dir, r, "model_0.pt") for r in runs
+                 if os.path.exists(os.path.join(model_dir, r, "model_0.pt"))]
+        if len(runs) != 1 or len(ckpts) != 1:
+            fail(f"[14b] run directories {runs}, checkpoints {ckpts}")
+        with open(os.path.join(model_dir, runs[0], "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        with open(os.path.join(model_dir, runs[0], "log.txt")) as f:
+            run_log = f.read()
+        steps = len(NyuDataset(os.path.join(data, "train"))) // EngineConfig().real_batch
+        bad = [r for r in recs if not all(np.isfinite(v) for v in r.values()
+                                          if isinstance(v, float))]
+        if not recs or bad or "data-parallel over 2 ranks (gloo)" not in run_log:
+            fail(f"[14b] records {recs}, log:\n{run_log[-2000:]}")
+        eval_dir = os.path.join(tmp, "eval")
+        torchrun(["--mode", "Test", "--initial_model", ckpts[0], "--tag", "dpev_"])
+        reports = {(r, m): torch.load(os.path.join(report, f"rank{r}_{m}.pt"), weights_only=True)
+                   for r in range(2) for m in ("Train", "Test")}
+        same = all(torch.equal(v, reports[(1, "Train")]["network"][k])
+                   for k, v in reports[(0, "Train")]["network"].items())
+        missing = {f"rank{r} {m}": [n for n in names if reports[(r, m)]["launches"][n] < 1]
+                   for r in range(2) for m, names in
+                   (("Train", P14_TRAIN_KERNELS), ("Test", P14_EVAL_KERNELS))}
+        if not same or any(missing.values()):
+            fail(f"[14b] parameters equal across ranks: {same}; kernels not launched: {missing}")
+        ev_runs = [r for r in os.listdir(model_dir) if r.startswith("dpev_")]
+        with np.load(os.path.join(model_dir, ev_runs[0], "result.npz")) as f:
+            gt, est = f["gt"], f["est"]
+        test_rows = len(NyuDataset(os.path.join(data, "test")))
+        one = Engine(EngineConfig(mode="Test", dataset_dir=data, model_dir=eval_dir,
+                                  initial_model=ckpts[0], eval_precision="highest",
+                                  tag="one_"), device=dev)
+        one.eval()
+        with np.load(os.path.join(one.model_path, "result.npz")) as f:
+            ref_gt, ref_est = f["gt"], f["est"]
+        gap = float(np.abs(est - ref_est).max()) if est.shape == ref_est.shape else float("inf")
+        if (len(ev_runs) != 1 or gt.shape != (test_rows, 36, 3) or est.shape != (test_rows, 41, 3)
+                or not np.array_equal(gt, ref_gt) or gap > P14_EVAL_MM):
+            fail(f"[14b] eval runs {ev_runs}: gt {gt.shape}, est {est.shape} against "
+                 f"{ref_est.shape}, joints gap {gap} mm (limit {P14_EVAL_MM})")
+        launches = {f"rank{r} {m}": {n: reports[(r, m)]["launches"][n] for n in names}
+                    for r in range(2) for m, names in
+                    (("Train", P14_TRAIN_KERNELS), ("Test", P14_EVAL_KERNELS))}
+        log(f"[14b] torchrun --nproc_per_node 2 -m spherehand_torch on one card "
+            f"({reports[(0, 'Train')]['backend']}, {reports[(0, 'Train')]['device']} and "
+            f"{reports[(1, 'Train')]['device']}): {steps} combined steps at 48 + 25 x 3 (24 + 24 "
+            f"synthetic, 13 + 13 real rows, one at weight 0), parameters equal across ranks bit "
+            f"for bit, checkpoint {os.path.relpath(ckpts[0], model_dir)} by rank 0, records "
+            f"{[r['it'] for r in recs]} (last {json.dumps(recs[-1])}); --mode Test: result.npz "
+            f"{est.shape}, joints within {gap:.3g} mm of one rank's eval of the same "
+            f"checkpoint; launches by rank {json.dumps(launches)} in "
+            f"{time.perf_counter() - t0:.2f} s")
+
+        # ----------------------------------------------------------- (c)
+        (nccl,) = nccl_future.result(timeout=P14_TIMEOUT_S)
+        log(f"[14c] one NCCL rank: combined_grads' loss and terms equal the ungrouped call's "
+            f"bit for bit, NCCL's sum of the gradients returns them bit for bit; the group's "
+            f"gradients {float(nccl['identity/grad_gap']):.3g} of each tensor's largest entry "
+            f"from the ungrouped call's, a second ungrouped backward "
+            f"{float(nccl['identity/spread']):.3g} (the card's run-to-run spread); beside (b), "
+            f"{time.perf_counter() - t_side:.2f} s since (a)")
+
+        # ----------------------------------------------------------- (d)
+        t0 = time.perf_counter()
+        g = torch.Generator(device=dev).manual_seed(seed + 140)
+        with torch.no_grad():
+            crops = render_depth_64(model, forward_kinematics(model, sample_poses(g, P14_SERVE)),
+                                    torch.ones(P14_SERVE, device=dev)).cpu().numpy()
+        single = PoseEstimator(params, serve_chunk=P14_SERVE_CHUNK, precision="highest",
+                               device=dev)
+        split = PoseEstimator(params, serve_chunk=P14_SERVE_CHUNK, precision="highest",
+                              devices=[dev, dev])
+        joints, ref_joints = split.predict(crops), single.predict(crops)
+        serve_gap = float(np.abs(joints - ref_joints).max())
+        if joints.shape != (P14_SERVE, 41, 3) or serve_gap > P14_SERVE_MM:
+            fail(f"[14d] serving over 2 replicas: {joints.shape}, gap {serve_gap} mm")
+        log(f"[14d] PoseEstimator(devices=[{dev}, {dev}]) at B = {P14_SERVE}, serve_chunk "
+            f"{P14_SERVE_CHUNK}: {joints.shape}, within {serve_gap:.3g} mm of one device "
+            f"(limit {P14_SERVE_MM}) in {time.perf_counter() - t0:.2f} s")
+
+        # ----------------------------------------------------------- (e)
+        try:
+            doc_out, doc_err = doctor.communicate(timeout=P14_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"[14e] doctor did not end within {P14_TIMEOUT_S} s")
+        summary = [line for line in doc_out.splitlines() if "checks passed" in line]
+        counts = summary[0].split()[0].split("/") if summary else ["0", "1"]
+        if doctor.returncode != 0 or counts[0] != counts[1]:
+            fail(f"[14e] doctor exited {doctor.returncode}:\n{doc_out[-3000:]}\n"
+                 f"{doc_err[-2000:]}")
+        log(f"[14e] python -m spherehand_torch.doctor: {summary[0]}, beside (b) "
+            f"({time.perf_counter() - t_side:.2f} s since (a)): "
+            + "; ".join(line.strip() for line in doc_out.splitlines() if "PASS" in line))
+    finally:
+        if doctor is not None and doctor.poll() is None:
+            doctor.kill()
+            doctor.communicate()
+        if side is not None:
+            side.shutdown(wait=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[14] data parallelism on one card | {smi}; phase "
+        f"{time.perf_counter() - t_phase:.2f} s")
+
+
+def bench_phase(smi: str) -> None:
+    """Phase 15: ``python -m spherehand_torch.bench`` once; its line holds
+    every key of ``bench.py`` (and the card's name and limit), all finite."""
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "spherehand_torch.bench"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=P15_TIMEOUT_S)
+    lines = run.stdout.strip().splitlines()
+    if run.returncode != 0 or not lines:
+        fail(f"[15] bench exited {run.returncode}:\n{run.stdout[-2000:]}\n{run.stderr[-3000:]}")
+    record = json.loads(lines[-1])
+    missing = [k for k in BENCH_KEYS if k not in record]
+    bad = [k for k, v in record.items()
+           if isinstance(v, (int, float)) and not np.isfinite(v)]
+    if missing or bad:
+        fail(f"[15] bench keys missing {missing}, not finite {bad}: {lines[-1]}")
+    log(lines[-1])
+    log(f"[15] python -m spherehand_torch.bench: {len(record)} keys, all finite | {smi}; "
+        f"phase {time.perf_counter() - t0:.2f} s")
+
+
 def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
@@ -1023,12 +1302,18 @@ def sphere_rows(sc, fields: int, t: dict, stats: dict, launches: dict) -> list[d
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--rank_report", default=None,
+                    help="phase 14(b)'s rank mode: run the CLI (the arguments after --) as "
+                         "one rank and write its report into this directory")
+    ap.add_argument("cli", nargs="*", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run",
               file=sys.stderr)
         return 2
+    if args.rank_report is not None:
+        return engine_rank_child(args.rank_report, args.cli)
     sys.path.insert(0, ROOT)
     from spherehand_torch import cuda_build
     from spherehand_torch.convert import train_state_from_params
@@ -1529,6 +1814,12 @@ def main() -> int:
 
     # --------------------------------------------------------------- 13
     switches_phase(model, params, samples, dev, args.seed, smi)
+
+    # --------------------------------------------------------------- 14
+    parallel_phase(model, params, dev, args.seed, smi)
+
+    # --------------------------------------------------------------- 15
+    bench_phase(smi)
 
     print(json.dumps({"kernels": kernel_rows}))
     print(smi)

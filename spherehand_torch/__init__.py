@@ -16,8 +16,13 @@ Same layer layout as the JAX package, so each counterpart is easy to find:
   train/       steps, engine (epochs, checkpoints, eval), config, CLI, the
                offline prior trainers
   utils/       step timing and tracing
+  parallel/    data parallelism: rank groups, the zero-weight pad plan, the
+               summed gradients; N ranks checked against one device
   infer.py     ``PoseEstimator`` and ``load_estimator``, the serving surface
+               (over several devices with ``devices=``)
   convert.py   carries the JAX package's weights across
+  bench.py     ``python -m spherehand_torch.bench``: the one-line benchmark
+  doctor.py    ``python -m spherehand_torch.doctor``: PASS/FAIL by layer
 
 ``python -m spherehand_torch`` trains and evaluates (``train/cli.py``).
 Entry points default to ``torch.device("cuda")`` and raise on a machine

@@ -18,12 +18,14 @@ def average_joint_error(
     synt_points: tuple = C.SYNT_KEY_POINTS,
     real_points: tuple = C.REAL_KEY_POINTS,
     weights: torch.Tensor | None = None,
+    total=None,
 ) -> torch.Tensor:
     """Mean L2 error (mm): gt (..., 36, 3) NYU joints vs est (..., 41, 3);
-    ``weights`` (batch,) zeroes padded rows."""
+    ``weights`` (batch,) zeroes padded rows; ``total``: the global row count
+    on one rank of several (``ops.reduce``)."""
     gt = gt_joints[..., list(real_points), :]
     est = est_joints[..., list(synt_points), :]
-    return bmean(torch.linalg.norm(gt - est, dim=-1), weights)
+    return bmean(torch.linalg.norm(gt - est, dim=-1), weights, total)
 
 
 def per_joint_error(

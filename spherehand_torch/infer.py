@@ -5,11 +5,13 @@ depth crops, soft-argmax recovery from the final stack, optional palm
 denoising and optional template palm adjustment. Large batches run as a loop
 over ``serve_chunk``-sized chunks, the last one padded (pad rows are dropped
 before returning). :func:`load_estimator` serves a checkpoint of the port's
-engine. Data-parallel serving (``mesh=``) is not ported yet.
+engine. ``devices=[...]`` serves data-parallel, the counterpart of the JAX
+``mesh=``: one replica a device, the batch split into contiguous blocks.
 """
 from __future__ import annotations
 
 import contextlib
+import copy
 
 import numpy as np
 import torch
@@ -55,65 +57,92 @@ class PoseEstimator:
     precision: ``None`` = PyTorch defaults (cuDNN convs may use TF32 on the
         GPU); ``"highest"`` = true-f32 convs and matmuls, parity grade.
     device: where the network runs; CUDA by default.
+    devices: serve data-parallel over these devices (the JAX ``mesh=``;
+        e.g. ``["cuda:0", "cuda:1"]``): one replica of the network and the
+        denoiser a device; the host batch is padded to a multiple of the
+        device count by repeating its last row, each device takes a
+        contiguous block of rows and runs the chunked predictor on it
+        (``serve_chunk`` per device), every device's work is launched before
+        the first result is read back, and the pad rows are dropped. None
+        (the default) serves on ``device`` alone.
     """
 
     def __init__(self, params: dict, num_stacks: int = 1, denoise: bool = True,
                  serve_chunk: int = 128, precision: str | None = None,
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None, devices: list | None = None):
         if precision not in (None, "highest"):
             raise ValueError(f"precision must be None or 'highest', got {precision!r}")
-        self.device = resolve_device(device)
+        if devices is not None and not devices:
+            raise ValueError("devices must name at least one device")
+        self.device = resolve_device(device if devices is None else devices[0])
         network = params if isinstance(params, nn.Module) else load_hourglass(
             make_network(num_stacks), params)
         self.network = network.to(self.device).eval()
         self.denoiser = load_pose_denoiser(device=self.device) if denoise else None
         self.serve_chunk = serve_chunk
         self.precision = precision
+        # (device, network, denoiser) a device; the first is the one above.
+        self.replicas = [(self.device, self.network, self.denoiser)]
+        for dev in [resolve_device(d) for d in (devices or [])[1:]]:
+            self.replicas.append((dev, copy.deepcopy(self.network).to(dev),
+                                  None if self.denoiser is None
+                                  else copy.deepcopy(self.denoiser).to(dev)))
 
+    @staticmethod
     @torch.no_grad()
-    def _predict_chunk(self, dms: torch.Tensor):
-        out = forward(self.network, real_dms=dms[:, None])
+    def _predict_chunk(network, denoiser, dms: torch.Tensor):
+        out = forward(network, real_dms=dms[:, None])
         joints = out.real_xyz[-1][:, 0]
-        if self.denoiser is not None:
-            joints = self.denoiser(joints)
+        if denoiser is not None:
+            joints = denoiser(joints)
         return joints, out.real_uv_hms[-1][:, 0]
 
-    def _predict(self, dms: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """Scaled crops (B, 64, 64) on the estimator's device -> joints
-        (B, 41, 3) and uv heatmaps (B, 41, 16, 16), on the device."""
+    def _predict_local(self, replica, dms: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Scaled crops (B, 64, 64) on a replica's device -> joints (B, 41,
+        3) and uv heatmaps (B, 41, 16, 16), on the device, chunk by chunk."""
+        _, network, denoiser = replica
         b = dms.shape[0]
-        with float32_precision(self.precision):
-            if b <= self.serve_chunk:
-                return self._predict_chunk(dms)
-            pad = (-b) % self.serve_chunk
-            if pad:
-                dms = torch.cat([dms, dms[:pad]], dim=0)
-            outs = [self._predict_chunk(c) for c in dms.split(self.serve_chunk)]
-        joints = torch.cat([o[0] for o in outs])[:b]
-        heatmaps = torch.cat([o[1] for o in outs])[:b]
-        return joints, heatmaps
+        if b <= self.serve_chunk:
+            return self._predict_chunk(network, denoiser, dms)
+        pad = (-b) % self.serve_chunk
+        if pad:
+            dms = torch.cat([dms, dms[:pad]], dim=0)
+        outs = [self._predict_chunk(network, denoiser, c) for c in dms.split(self.serve_chunk)]
+        return torch.cat([o[0] for o in outs])[:b], torch.cat([o[1] for o in outs])[:b]
 
-    def _scaled(self, depth_mm) -> torch.Tensor:
+    def _predict(self, depth_mm) -> tuple[torch.Tensor, torch.Tensor]:
+        """Crops in mm -> joints and heatmaps on the host: each replica's
+        block launched in turn, then all read back."""
         if isinstance(depth_mm, torch.Tensor):
-            dms = depth_mm.to(self.device, torch.float32)
+            host = depth_mm.to(dtype=torch.float32)
         else:
-            dms = torch.as_tensor(np.asarray(depth_mm, np.float32), device=self.device)
-        return dms * _C.depth_scale
+            host = torch.as_tensor(np.asarray(depth_mm, np.float32))
+        b, n = host.shape[0], len(self.replicas)
+        pad = (-b) % n
+        if pad:  # the JAX _pad_to_mesh: repeat the last row
+            host = torch.cat([host, host[-1:].expand(pad, *host.shape[1:])])
+        with float32_precision(self.precision):
+            outs = [self._predict_local(rep, block.to(rep[0], non_blocking=True)
+                                        * _C.depth_scale)
+                    for rep, block in zip(self.replicas, host.chunk(n))]
+        joints = torch.cat([o[0].cpu() for o in outs])[:b]
+        heatmaps = torch.cat([o[1].cpu() for o in outs])[:b]
+        return joints, heatmaps
 
     def predict(self, depth_mm, palm_adjust: bool = False) -> np.ndarray:
         """Depth crops (B, 64, 64) in mm (background 100) -> joints (B, 41, 3).
 
         Input follows the NYU crop convention (300 mm cube, orthographic).
         """
-        joints, _ = self._predict(self._scaled(depth_mm))
-        joints = joints.cpu().numpy()
+        joints, _ = self._predict(depth_mm)
+        joints = joints.numpy()
         if palm_adjust:
             joints = np.stack([adjust_palm_pose(j) for j in joints])
         return joints
 
     def predict_with_heatmaps(self, depth_mm) -> tuple[np.ndarray, np.ndarray]:
-        joints, heatmaps = self._predict(self._scaled(depth_mm))
-        return joints.cpu().numpy(), heatmaps.cpu().numpy()
+        joints, heatmaps = self._predict(depth_mm)
+        return joints.numpy(), heatmaps.numpy()
 
 
 def load_params_npz(path: str) -> dict:

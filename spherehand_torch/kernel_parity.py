@@ -23,10 +23,10 @@ then ``stack_loss`` and the norm of its joint gradient on the loss fixture
 loss (``stack_loss``) and the unfused one (``stack_loss_unfused``).
 ``rel(a, b)`` is max |a - b| / max |b|.
 
-Usage: python -m spherehand_torch.kernel_parity [--seed 0]
+Usage: python -m spherehand_torch.kernel_parity [--seed 0] [--out PATH]
 
-Prints one JSON line of these statistics, then the card's name and power
-limit. Runs on CUDA (``--device cpu`` runs the plain versions against
+Prints one JSON line of these statistics (``--out`` also writes it to PATH),
+then the card's name and power limit. Runs on CUDA (``--device cpu`` runs the plain versions against
 themselves, a check of the script alone).
 """
 from __future__ import annotations
@@ -210,17 +210,22 @@ def run(device, seed: int = 0, raster_batch: int = RASTER_BATCH, sphere_n: int =
             **sphere_stats(device, sphere_n, sphere_batch)}
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="default cuda")
-    args = ap.parse_args()
+    ap.add_argument("--out", default=None, help="also write the JSON line to this file")
+    args = ap.parse_args(argv)
     from spherehand_torch.device import resolve_device
 
     dev = resolve_device(args.device)
-    stats = run(dev, args.seed)
-    print(json.dumps({"device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
-                      **stats}))
+    stats = run(dev, args.seed, RASTER_BATCH, N, B)
+    line = json.dumps({"device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+                       **stats})
+    print(line)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
     if dev.type == "cuda":
         print(subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

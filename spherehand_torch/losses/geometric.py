@@ -28,10 +28,13 @@ def collision_loss(
     return bsum(torch.relu(min_dist * min_dist - sq), weights)
 
 
-def bone_length_loss(joints: torch.Tensor, weights: torch.Tensor | None = None) -> torch.Tensor:
+def bone_length_loss(joints: torch.Tensor, weights: torch.Tensor | None = None,
+                     total=None) -> torch.Tensor:
     """Penalty outside [0.80 L, 1.05 L] of the 35 median bone lengths: the
-    lower and upper squared-length violations, each averaged, summed."""
+    lower and upper squared-length violations, each averaged, summed.
+    ``total``: the global row count on one rank of several (``ops.reduce``)."""
     sq = _pair_sq_dist(joints, C.BONE_PAIRS_J1, C.BONE_PAIRS_J2)
     min_sq = torch.as_tensor((C.BONE_MEDIAN_LENGTH * 0.80) ** 2, dtype=sq.dtype, device=sq.device)
     max_sq = torch.as_tensor((C.BONE_MEDIAN_LENGTH * 1.05) ** 2, dtype=sq.dtype, device=sq.device)
-    return bmean(torch.relu(min_sq - sq), weights) + bmean(torch.relu(sq - max_sq), weights)
+    return (bmean(torch.relu(min_sq - sq), weights, total)
+            + bmean(torch.relu(sq - max_sq), weights, total))

@@ -74,6 +74,7 @@ def mutual_projection_loss(
     is_mv: bool | torch.Tensor = True,
     weights: torch.Tensor | None = None,
     fused: bool | None = None,
+    total=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Model <-> data alignment across views (multiview_utility.py:90-130).
 
@@ -81,8 +82,9 @@ def mutual_projection_loss(
     mm (background 100). The mv branch covers all V x V pairs (x9), the sv
     branch the own-view diagonal (x3); each is m2d + 500 d2m. Both are
     computed and ``is_mv`` selects. ``fused`` picks the fused or unfused
-    form (default: fused on CUDA, unfused on the CPU). Returns (loss,
-    projected depth maps (B, V, V, S, S)).
+    form (default: fused on CUDA, unfused on the CPU). ``total``: the
+    global sample count on one rank of several (``ops.reduce``). Returns
+    (loss, projected depth maps (B, V, V, S, S)).
     """
     size = real_dms.shape[-1]
     num_views = real_dms.shape[1]
@@ -100,21 +102,22 @@ def mutual_projection_loss(
         )
         projected_dms = depth.reshape(b, vi, vj, size, size)
         dist_field = torch.clamp(dist.reshape(b, vi, vj, size, size), 0.0, 50.0)
-        d2m_mv = bmean(dist_field, weights) * 9.0
+        d2m_mv = bmean(dist_field, weights, total) * 9.0
         # the diagonal [b, v, v] of the same field is the own-view d2m term
-        d2m_sv = bmean_keep(dist_field[:, diag, diag], weights, (2, 3)).sum() * 3.0
+        d2m_sv = bmean_keep(dist_field[:, diag, diag], weights, (2, 3), total).sum() * 3.0
     else:
         projected_dms, projected = mutual_projection(poses, inv_poses, joints, radii, size)
         # target[b, i, j] = real_dms[b, j]
         target = real_dms[:, None].expand_as(projected_dms)
-        d2m_mv = data_to_model_distance(target, projected, radii, weights) * 9.0
+        d2m_mv = data_to_model_distance(target, projected, radii, weights, total) * 9.0
         joints_diag = projected[:, diag, diag]  # (B, V, J, 3)
-        d2m_sv = sum(data_to_model_distance(real_dms[:, v], joints_diag[:, v], radii, weights)
+        d2m_sv = sum(data_to_model_distance(real_dms[:, v], joints_diag[:, v], radii, weights,
+                                            total)
                      for v in range(num_views)) * 3.0
 
-    m2d_mv = bmean((projected_dms - real_dms[:, None]) ** 2, weights) * 9.0
+    m2d_mv = bmean((projected_dms - real_dms[:, None]) ** 2, weights, total) * 9.0
     proj_diag = projected_dms[:, diag, diag]  # (B, V, S, S)
-    m2d_sv = bmean_keep((proj_diag - real_dms) ** 2, weights, (2, 3)).sum() * 3.0
+    m2d_sv = bmean_keep((proj_diag - real_dms) ** 2, weights, (2, 3), total).sum() * 3.0
 
     loss_mv = m2d_mv + 500.0 * d2m_mv
     loss_sv = m2d_sv + 500.0 * d2m_sv
@@ -123,14 +126,15 @@ def mutual_projection_loss(
 
 
 def multiview_consistency_loss(
-    poses: torch.Tensor, joints: torch.Tensor, weights: torch.Tensor | None = None
+    poses: torch.Tensor, joints: torch.Tensor, weights: torch.Tensor | None = None,
+    total=None,
 ) -> torch.Tensor:
     """MSE of the per-view canonical joints (B, V, J, 3) against their
     per-coordinate median over views (the lower middle value for even V)."""
     canonical = apply_rigid(poses, joints)
     num_views = canonical.shape[1]
     med = torch.sort(canonical, dim=1).values[:, (num_views - 1) // 2]
-    return bmean((med[:, None] - canonical) ** 2, weights)
+    return bmean((med[:, None] - canonical) ** 2, weights, total)
 
 
 def _pick_views(canonical: torch.Tensor, view: torch.Tensor) -> torch.Tensor:

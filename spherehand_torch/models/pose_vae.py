@@ -73,15 +73,17 @@ def prior_loss(
     joints: torch.Tensor,
     noise: torch.Tensor,
     weights: torch.Tensor | None = None,
+    total=None,
 ) -> torch.Tensor:
     """VAE prior loss on joints already divided by 100: (..., 41, 3) or
     (..., 123), flattened to (N, 123), always reparameterised with ``noise``
-    (N, 32). ``weights`` (N,) marks padded rows with 0."""
+    (N, 32). ``weights`` (N,) marks padded rows with 0; ``total`` is the
+    global row count on one rank of several (``ops.reduce``)."""
     x = joints.reshape(-1, vae.dec_out.out_features)
     recon, mu, logvar, likelihood = vae(x, noise)
-    if weights is None:
+    if weights is None and total is None:
         return likelihood
-    recon_loss = bmean((x - recon) ** 2, weights)
+    recon_loss = bmean((x - recon) ** 2, weights, total)
     kld = -0.5 * bsum(1.0 + logvar - mu * mu - torch.exp(logvar), weights)
     return recon_loss + kld
 

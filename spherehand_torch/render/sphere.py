@@ -80,11 +80,13 @@ def render_sphere_hand(centers: torch.Tensor, radii: torch.Tensor, size: int):
 
 
 def data_to_model_distance(depth_maps: torch.Tensor, centers: torch.Tensor,
-                           radii: torch.Tensor, weights: torch.Tensor | None = None):
+                           radii: torch.Tensor, weights: torch.Tensor | None = None,
+                           total=None):
     """Mean distance from observed depth pixels to the nearest sphere surface.
 
     depth_maps (..., H, W) mm (background 100), centers (..., J, 3) mm, radii
-    (J,), weights optional (batch,) row weights (ops.reduce). Each pixel's
+    (J,), weights optional (batch,) row weights and ``total`` the global
+    row count on one rank of several (ops.reduce). Each pixel's
     distance ``| ||p - c|| - r |`` to the nearest sphere is 0 on background,
     clipped to [0, 50] and averaged over all pixels (DataToModelLoss,
     reference mesh/render.py:123-142). ``||p - c||^2`` is expanded as
@@ -107,7 +109,7 @@ def data_to_model_distance(depth_maps: torch.Tensor, centers: torch.Tensor,
             depth_maps.reshape(-1, height, width), centers.reshape(-1, *centers.shape[-2:]),
             radii, height,
         ).reshape(*lead, height, width)
-        return bmean(torch.clamp(nearest, 0.0, 50.0), weights)
+        return bmean(torch.clamp(nearest, 0.0, 50.0), weights, total)
     x_grid, y_grid = _mm_grid(height, width, depth_maps.dtype, depth_maps.device)
     z = depth_maps
     p_sq = x_grid * x_grid + y_grid * y_grid + z * z
@@ -121,4 +123,4 @@ def data_to_model_distance(depth_maps: torch.Tensor, centers: torch.Tensor,
     background = depth_maps > 99.0
     dist = torch.where(background[..., None, :, :], torch.zeros_like(dist), dist)
     nearest = dist.amin(dim=-3)
-    return bmean(torch.clamp(nearest, 0.0, 50.0), weights)
+    return bmean(torch.clamp(nearest, 0.0, 50.0), weights, total)

@@ -3,21 +3,33 @@ same names and defaults, plus ``--device``.
 
 As in the reference (``network/run_engine.py:9-31``), the loss toggles are
 default-on ``store_false`` flags: passing ``--synthesize`` DISABLES
-synthesis. Data parallelism over more than one card, whose port is still
-queued, raises a ``ValueError`` naming its ROADMAP item (``--no_data_parallel``
-trains on one card).
+synthesis.
+
+Data parallelism, as the JAX engine takes every device: on a host with N > 1
+cards the CLI starts one rank per card under ``torch.distributed.run``
+(NCCL), each running this CLI; ``--no_data_parallel`` trains on one card.
+Launched by ``torchrun`` (``WORLD_SIZE`` set), it joins the launcher's group
+instead (gloo where ranks share a card). The decision is
+``parallel.mesh.rank_plan``'s.
 
 Usage:
     python -m spherehand_torch --mode Train --model_dir runs \\
         --dataset_dir data/nyu/npy-64
+    torchrun --nproc_per_node 4 -m spherehand_torch --mode Train ...
     python -m spherehand_torch --mode Test --initial_model runs/<run>/model_74.pt \\
         --dataset_dir data/nyu/npy-64
 """
 from __future__ import annotations
 
 import argparse
+import os
+import subprocess
+import sys
 
-from spherehand_torch.train.config import EngineConfig, refuse_queued
+import torch
+
+from spherehand_torch.parallel.mesh import RankGroup, join_launcher, leave_group, rank_plan
+from spherehand_torch.train.config import EngineConfig
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -102,21 +114,52 @@ def config_from_args(args: argparse.Namespace) -> EngineConfig:
     )
 
 
-def main(argv: list[str] | None = None) -> None:
-    from spherehand_torch.device import resolve_device
+def run(cfg: EngineConfig, device: torch.device, group: RankGroup | None = None):
+    """Train or evaluate ``cfg`` (its ``mode``) on ``device``, or as one
+    rank of ``group``; returns the engine."""
     from spherehand_torch.train.engine import Engine
 
+    engine = Engine(cfg, device=device, group=group)
+    if cfg.mode == "Train":
+        engine.train()
+    else:
+        engine.eval()
+    return engine
+
+
+def spawn(argv: list[str], world: int) -> int:
+    """Run this CLI as ``world`` ranks, one per card, under
+    ``torch.distributed.run`` on this host; its exit code."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={world}", "-m", "spherehand_torch", *argv]
+    return subprocess.run(cmd, check=False).returncode
+
+
+def main(argv: list[str] | None = None):
+    """The CLI; returns the engine that ran in this process (a spawning
+    parent exits with its ranks' code instead)."""
+    from spherehand_torch.device import resolve_device
+
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     if args.mode == "Test" and args.initial_model is None and args.restore_from_model is None:
         raise SystemExit("Test mode requires --initial_model or --restore_from_model")
     cfg = config_from_args(args)
     device = resolve_device(args.device)
-    refuse_queued(cfg, device)
-    engine = Engine(cfg, device=device)
-    if args.mode == "Train":
-        engine.train()
-    else:
-        engine.eval()
+    count = torch.cuda.device_count() if device.type == "cuda" else 0
+    plan = rank_plan(cfg, device, count, os.environ)
+    if plan.note:
+        print(plan.note)
+    if plan.launch == "spawn":
+        print(f"[cli] data-parallel over {plan.world} cards: one rank each "
+              "(--no_data_parallel trains on one)")
+        raise SystemExit(spawn(argv, plan.world))
+    group = join_launcher(device.type) if plan.launch == "join" else None
+    try:
+        return run(cfg, device, group)
+    finally:
+        if group is not None:
+            leave_group()
 
 
 if __name__ == "__main__":

@@ -2,15 +2,12 @@
 
 Counterpart of ``spherehand_tpu/train/config.py`` (reference
 network/run_engine.py:9-31 flags, engine.py batch geometry): the same
-fields with the same defaults. :func:`refuse_queued` names the one switch
-whose port is still queued (data parallelism over more than one card); the
-engine and the CLI raise on it rather than ignore it.
+fields with the same defaults. ``data_parallel`` trains over every card of
+the host, one rank each (``parallel.mesh.rank_plan``, the CLI).
 """
 from __future__ import annotations
 
 import dataclasses
-
-import torch
 
 from spherehand_torch.losses.multitask import LossConfig
 
@@ -48,7 +45,7 @@ class EngineConfig:
 
     seed: int = 0
     weight_decay: float = 1e-5
-    data_parallel: bool = True  # one card here; more than one is queued
+    data_parallel: bool = True  # one rank per card (the CLI); False: one card
     bf16: bool = False  # bfloat16 convolutions (parameters and losses float32)
     mesh: str = "full"  # "full" | "lite" (the decimated mesh for synthetic renders)
     # "default": PyTorch's float32 defaults in the eval step (cuDNN may use
@@ -87,13 +84,3 @@ class EngineConfig:
         step_size = max(self.epoch // 3, 1)
         return self.lr * (0.1 ** (epoch // step_size))
 
-
-def refuse_queued(cfg: EngineConfig, device: torch.device) -> None:
-    """Raise ``ValueError`` for a switch whose port is still queued
-    (ROADMAP.md, Queue 1), naming its item."""
-    queued = []
-    if cfg.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
-        queued.append(f"data parallelism over {torch.cuda.device_count()} cards "
-                      "(Queue 1 item 5; --no_data_parallel trains on one)")
-    if queued:
-        raise ValueError("not ported yet, see ROADMAP.md: " + "; ".join(queued))

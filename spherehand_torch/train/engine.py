@@ -24,6 +24,17 @@ Built for eager PyTorch on one card:
   only; ``restore_from_model`` resumes fully, at the epoch after the one
   the checkpoint holds (the JAX engine restarts the epoch it holds, or
   epoch -1 from its rolling latest).
+
+Data parallelism (``group``, a ``parallel.mesh.RankGroup``; the CLI forms
+it): every rank builds the same global index plan, pads each batch to a
+multiple of the rank count (rows repeated from its start at weight 0, the
+JAX ``_pad_idx``) and gathers only its own block, from the host loader or
+from its own resident split. Rank 0 alone names the run (and broadcasts
+the name) and writes ``log.txt``, ``metrics.jsonl``, ``config.json``,
+images, checkpoints and ``result.npz``; a barrier follows each checkpoint,
+and every rank loads one. Eval gathers the denoised joints to rank 0 in
+the global order and drops the pad rows. The metrics are the global
+batch's (the steps sum them); steps/s is rank 0's.
 """
 from __future__ import annotations
 
@@ -44,7 +55,8 @@ from spherehand_torch.data.nyu import NyuDataset, NyuLoader
 from spherehand_torch.device import resolve_device
 from spherehand_torch.hand.assets import HandModel, load_hand_model
 from spherehand_torch.losses.multitask import LOSS_WEIGHTS
-from spherehand_torch.train.config import EngineConfig, refuse_queued
+from spherehand_torch.parallel.mesh import RankGroup, temporal_ranks
+from spherehand_torch.train.config import EngineConfig
 from spherehand_torch.train.steps import NUM_VIEWS, RealBatch, StepDraws, build_steps
 from spherehand_torch.utils.profiling import StepTimer
 
@@ -137,19 +149,26 @@ def _prefetch(iterable, depth: int = 2):
 
 class Engine:
     """Training and eval of one run. ``device``: CUDA by default; ``hand``:
-    a loaded hand model to share (loaded on ``device`` when None)."""
+    a loaded hand model to share (loaded on ``device`` when None);
+    ``group``: this process's rank of a data-parallel group (its device is
+    the run's), or None for one device."""
 
     def __init__(self, cfg: EngineConfig, device: torch.device | str | None = None,
-                 hand: HandModel | None = None):
+                 hand: HandModel | None = None, group: RankGroup | None = None):
         self.cfg = cfg
-        self.device = resolve_device(device)
-        refuse_queued(cfg, self.device)
+        self.group = group
+        self.is_main = group is None or group.is_main
+        self.device = group.device if group is not None else resolve_device(device)
+        if group is not None and cfg.temporal and temporal_ranks(cfg, group.world) != group.world:
+            raise ValueError(f"--temporal over {group.world} ranks needs every batch divisible "
+                             f"by {group.world} (padding would break the consecutive-row loss)")
         # "lite": the decimated mesh (the same bones, keypoints and spheres;
         # only the synthetic raster sees fewer faces), engine.py:127-130.
         self.hand = (load_hand_model(device=self.device, lite=cfg.mesh == "lite")
                      if hand is None else hand)
-        self.steps = build_steps(cfg, self.hand, device=self.device)
-        # Initialised from a CPU generator: the same weights on every device.
+        self.steps = build_steps(cfg, self.hand, device=self.device, group=group)
+        # Initialised from a CPU generator: the same weights on every device
+        # (under a group, rank 0's are broadcast and the ranks checked equal).
         self.state = self.steps.init_state(torch.Generator().manual_seed(cfg.seed + 1))
         self._gen = torch.Generator(device=self.device)
         self.starting_epoch = 0
@@ -160,23 +179,27 @@ class Engine:
             self.model_path = os.path.join(cfg.model_dir, self.model_name)
             self.load_checkpoint(cfg.restore_from_epoch)
         else:
-            self.model_name = cfg.tag + _rand_name()
+            name = cfg.tag + _rand_name() if self.is_main else None
+            self.model_name = name if group is None else group.broadcast_object(name)
             self.model_path = os.path.join(cfg.model_dir, self.model_name)
-            os.makedirs(self.model_path, exist_ok=True)
-        print(f"[engine] run dir: {self.model_path}")
-
-        with open(os.path.join(self.model_path, "loss_weights.txt"), "w") as f:
-            json.dump(LOSS_WEIGHTS, f)
-        with open(os.path.join(self.model_path, "config.json"), "w") as f:
-            json.dump(dataclasses.asdict(cfg), f, indent=2)
-
-        if cfg.initial_model is not None:
-            self.load_checkpoint(cfg.initial_model, weights_only=True)
-
+            if self.is_main:
+                os.makedirs(self.model_path, exist_ok=True)
         self.log_file = os.path.join(self.model_path, "log.txt")
         self.metrics_file = os.path.join(self.model_path, "metrics.jsonl")
         self.image_dir = os.path.join(self.model_path, "images")
-        os.makedirs(self.image_dir, exist_ok=True)
+        if self.is_main:
+            print(f"[engine] run dir: {self.model_path}")
+            with open(os.path.join(self.model_path, "loss_weights.txt"), "w") as f:
+                json.dump(LOSS_WEIGHTS, f)
+            with open(os.path.join(self.model_path, "config.json"), "w") as f:
+                json.dump(dataclasses.asdict(cfg), f, indent=2)
+            os.makedirs(self.image_dir, exist_ok=True)
+
+        if cfg.initial_model is not None:
+            self.load_checkpoint(cfg.initial_model, weights_only=True)
+        if group is not None:
+            self._log(f"[engine] data-parallel over {group.world} ranks ({group.backend}), "
+                      f"rank 0 on {group.device}")
         if cfg.steps_per_call > 1:
             self._log(f"[engine] steps_per_call {cfg.steps_per_call}: runs as "
                       f"{cfg.steps_per_call} plain steps in a row, the same math as 1")
@@ -242,23 +265,36 @@ class Engine:
         t = torch.from_numpy(np.ascontiguousarray(a))
         return t.pin_memory() if self.device.type == "cuda" else t
 
+    def _rank_rows(self, idx: np.ndarray) -> tuple[np.ndarray, torch.Tensor | None, int | None]:
+        """This rank's sample indices of the global batch ``idx`` (padded to
+        the rank count), their weights on the device and the global total."""
+        if self.group is None:
+            return idx, None, None
+        rows = self.group.rows(len(idx))
+        return idx[rows.index], self.group.weights_on_device(rows), rows.total
+
     def batches(self, train: bool, batch_size: int,
                 epoch: int = 0) -> Iterator[tuple[np.ndarray, RealBatch]]:
-        """The epoch's (indices, batch on the device) pairs, from the host
-        loader (a gather thread, pinned tensors, asynchronous copies) or
-        from the device-resident split (``device_data``)."""
+        """The epoch's (global indices, this rank's batch on the device)
+        pairs, from the host loader (a gather thread, pinned tensors,
+        asynchronous copies) or from the device-resident split
+        (``device_data``)."""
         plan = self.index_plan(train, batch_size, epoch)
         data = self._resident(train)
         if data is None:
             ds = self._split(train)
-            gathered = ((idx, [self._host_tensor(a) for a in ds.gather(idx)]) for idx in plan)
-            for idx, host in _prefetch(gathered):
-                yield idx, RealBatch(*(t.to(self.device, non_blocking=True) for t in host))
+            gathered = ((idx, self._rank_rows(idx)) for idx in plan)
+            hosted = ((idx, (w, total), [self._host_tensor(a) for a in ds.gather(rows)])
+                      for idx, (rows, w, total) in gathered)
+            for idx, (w, total), host in _prefetch(hosted):
+                yield idx, RealBatch(*(t.to(self.device, non_blocking=True) for t in host),
+                                     w, total)
         else:
             for idx in plan:
-                rows = self._host_tensor(idx.astype(np.int64)).to(self.device, non_blocking=True)
+                rows, w, total = self._rank_rows(idx)
+                rows = self._host_tensor(rows.astype(np.int64)).to(self.device, non_blocking=True)
                 yield idx, RealBatch(data["dms"][rows], data["joints"][rows],
-                                     data["poses"][rows], data["inv_poses"][rows])
+                                     data["poses"][rows], data["inv_poses"][rows], w, total)
 
     def step_draws(self, epoch: int, it: int, synt: bool = True, real: bool = True,
                    real_rows: int | None = None) -> StepDraws:
@@ -268,11 +304,15 @@ class Engine:
 
     # ------------------------------------------------------------- utilities
     def _log(self, text: str) -> None:
+        if not self.is_main:
+            return
         print(text)
         with open(self.log_file, "a") as f:
             f.write(text + "\n")
 
     def _log_metrics(self, record: dict) -> None:
+        if not self.is_main:
+            return
         with open(self.metrics_file, "a") as f:
             f.write(json.dumps(record) + "\n")
 
@@ -284,7 +324,10 @@ class Engine:
         """``model_{which}.pt``: the network and optimizer state, the step,
         the temporal-loss state and ``epoch``, the epoch it holds (the
         rolling latest is ``which`` = -1); ``model_{which}.meta.json``:
-        ``{"epoch", "step"}``."""
+        ``{"epoch", "step"}``. Rank 0 writes; every rank waits for it."""
+        if not self.is_main:
+            self.group.barrier()
+            return
         st = self.state
         path = self._checkpoint_path(which)
         tmp = f"{path}.{os.getpid()}.tmp"
@@ -294,6 +337,8 @@ class Engine:
         os.replace(tmp, path)
         with open(os.path.join(self.model_path, f"model_{which}.meta.json"), "w") as f:
             json.dump({"epoch": epoch, "step": st.step}, f)
+        if self.group is not None:
+            self.group.barrier()
 
     def load_checkpoint(self, which: int | str, weights_only: bool = False) -> None:
         """int: that checkpoint of this run (full resume, from the epoch
@@ -373,9 +418,8 @@ class Engine:
         avg, timer = RunningAverage(), StepTimer(window=LOG_EVERY)
         metrics = None
         t0 = time.time()
-        for it, (_, batch) in enumerate(self.batches(True, cfg.eval_batch, epoch)):
-            draws = self.step_draws(epoch, it, synt=False,
-                                    real_rows=batch.dms.shape[0] * NUM_VIEWS)
+        for it, (idx, batch) in enumerate(self.batches(True, cfg.eval_batch, epoch)):
+            draws = self.step_draws(epoch, it, synt=False, real_rows=len(idx) * NUM_VIEWS)
             self.state, metrics, vis = self.steps.real_step(self.state, lr, draws, batch)
             avg.append(metrics)
             timer.tick(metrics["loss"])
@@ -395,6 +439,8 @@ class Engine:
     def _dump_real_images(self, epoch: int, it: int, vis: dict) -> None:
         """Real-train-mode result grid every 100 its (reference
         engine.py:229-260)."""
+        if not self.is_main:
+            return
         try:
             img = viz.result_grid(
                 _host(vis["real_dms"]).reshape(-1, 64, 64)[:6],
@@ -407,6 +453,8 @@ class Engine:
 
     def _dump_train_images(self, epoch: int, it: int, vis: dict) -> None:
         """Real + synthetic result grids (reference engine.py:386-434)."""
+        if not self.is_main:
+            return
         try:
             # hstack needs equal grid heights: cap all three panels to the
             # smaller of 6 / real rows / synt rows (tiny-batch runs).
@@ -428,6 +476,8 @@ class Engine:
 
     def _dump_eval_images(self, epoch: int, it: int, batch: RealBatch,
                           denoised: np.ndarray) -> None:
+        if not self.is_main:
+            return
         try:
             dms = _host(batch.dms[:, 0]) * _C.depth_scale
             img = viz.result_grid(dms, np.zeros((dms.shape[0], 41, 16, 16), np.float32),
@@ -439,26 +489,32 @@ class Engine:
     def _epoch_real_eval(self, epoch: int, dump_images: bool = False) -> dict[str, float]:
         """Eval over the test split: the step's losses and the denoised
         view-0 joint error, and ``result.npz`` with ``gt`` (N, 36, 3, view
-        0) and ``est`` (N, 41, 3, denoised) for the offline evaluator."""
+        0) and ``est`` (N, 41, 3, denoised) for the offline evaluator.
+        Under a group, rank 0 gathers the ranks' joints in the global order
+        and drops the pad rows; it alone writes the file."""
         cfg = self.cfg
         ds = self._split(train=False)
         avg = RunningAverage()
         all_gt, all_est = [], []
         for it, (idx, batch) in enumerate(self.batches(False, cfg.eval_batch)):
-            draws = self.step_draws(epoch, it, synt=False,
-                                    real_rows=batch.dms.shape[0] * NUM_VIEWS)
+            draws = self.step_draws(epoch, it, synt=False, real_rows=len(idx) * NUM_VIEWS)
             metrics, denoised = self.steps.eval_step(self.state, draws, batch)
             avg.append(metrics)
             est = _host(denoised)
-            all_gt.append(ds.gather_joints(idx)[:, 0])  # host memmap, no device copy
-            all_est.append(est)
             if dump_images and it % LOG_EVERY == 0:
                 self._dump_eval_images(epoch, it, batch, est)
+            if self.group is not None:
+                parts = self.group.gather_objects(est)
+                est = None if parts is None else np.concatenate(parts)[:len(idx)]
+            if self.is_main:
+                all_gt.append(ds.gather_joints(idx)[:, 0])  # host memmap, no device copy
+                all_est.append(est)
         result = avg.to_dict()
         self._log(f"[eval epoch {epoch}]: {_fmt(result)}")
         self._log_metrics({"epoch": epoch, "mode": "eval", **result})
-        np.savez_compressed(os.path.join(self.model_path, "result.npz"),
-                            gt=np.concatenate(all_gt), est=np.concatenate(all_est))
+        if self.is_main:
+            np.savez_compressed(os.path.join(self.model_path, "result.npz"),
+                                gt=np.concatenate(all_gt), est=np.concatenate(all_est))
         return result
 
     # ------------------------------------------------------------ public API

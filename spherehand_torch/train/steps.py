@@ -35,7 +35,18 @@ sphere op and its CUDA kernels), backpropagates and takes one Adam step.
   float32; under ``eval_precision="highest"`` the eval step computes the
   convolutions in float32 too (the JAX ``eval_network``).
 
-Padded (data-parallel) synthetic batches are not ported yet.
+Data parallelism (``group``, a ``parallel.mesh.RankGroup``): parameters
+and Adam state are replicated (``init_state`` broadcasts rank 0's and checks
+that every rank drew the same). Every rank draws the step's draws for the
+whole batch from the same generator state, pads them like the rows (rows
+repeated from the batch's start at weight 0) and keeps its own contiguous
+block before rendering, so a rank renders only its synthetic rows. Each
+weighted mean divides by the batch's global row count (``RealBatch.total``,
+``StepDraws.synt_rows``), which makes a rank's loss its exact share of the
+global loss; the gradients and the logged metrics are then summed over the
+ranks (one flattened ``all_reduce`` each in the step). N ranks see the rows,
+draws and weights of one. Where the JAX package draws its synthetic pad rows
+fresh (``synt_pad``), the port repeats rows; both weigh them 0.
 """
 from __future__ import annotations
 
@@ -70,6 +81,8 @@ from spherehand_torch.losses.multitask import combine_loss, multitask_loss
 from spherehand_torch.models.estimator import forward, make_network
 from spherehand_torch.models.pose_denoiser import load_pose_denoiser
 from spherehand_torch.models.pose_vae import draw_vae_noise, load_pose_vae_model
+from spherehand_torch.ops.reduce import bmean
+from spherehand_torch.parallel.mesh import RankGroup, RankRows, sample_rows
 from spherehand_torch.train.config import EngineConfig
 
 _C = Constants()
@@ -89,13 +102,15 @@ class TrainState:
 
 class RealBatch(NamedTuple):
     """One multi-view batch (depth in mm, as a loader gives it). ``weights``
-    (B,) marks padded rows with 0; None = all rows real."""
+    (B,) marks padded rows with 0; None = all rows real. ``total``: on one
+    rank of several, the global batch's count of true samples."""
 
     dms: torch.Tensor        # (B, V, 64, 64) mm, background 100
     gt_joints: torch.Tensor  # (B, V, 36, 3)
     poses: torch.Tensor      # (B, V, 4, 4)
     inv_poses: torch.Tensor  # (B, V, 4, 4)
     weights: torch.Tensor | None = None
+    total: int | None = None
 
 
 class StepDraws(NamedTuple):
@@ -107,17 +122,37 @@ class StepDraws(NamedTuple):
     vae_noise: tuple | None                # per stack, (Br*V, 32)
     resample_real: torch.Tensor | None = None  # (Br*V, 64, 64) dropout uniforms
     resample_synt: torch.Tensor | None = None  # (Bs, 64, 64)
+    # On one rank of several: the rank's synthetic rows (the draws above
+    # are already those rows); None on one device.
+    synt_rows: RankRows | None = None
 
     def to(self, device) -> "StepDraws":
         """The same draws on ``device``."""
+        return _map_tensors(self, lambda x: x.to(device))
 
-        def move(x):
-            if x is None or isinstance(x, torch.Tensor):
-                return None if x is None else x.to(device)
-            items = [move(v) for v in x]
-            return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    def take(self, synt_idx: torch.Tensor | None, real_idx: torch.Tensor | None) -> "StepDraws":
+        """The draws of the rows ``synt_idx`` (synthetic) and ``real_idx``
+        (flat real rows); the resize coin, one for the batch, stays."""
 
-        return move(self)
+        def rows(idx):
+            return lambda x: x if x.dim() == 0 else x[idx]
+
+        synt, real = rows(synt_idx), rows(real_idx)
+        return self._replace(
+            poses=_map_tensors(self.poses, synt), synthesis=_map_tensors(self.synthesis, synt),
+            resample_synt=_map_tensors(self.resample_synt, synt),
+            resize=_map_tensors(self.resize, real), vae_noise=_map_tensors(self.vae_noise, real),
+            resample_real=_map_tensors(self.resample_real, real))
+
+
+def _map_tensors(x, fn):
+    """``x`` with ``fn`` applied to every tensor in it (nested tuples)."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if not isinstance(x, tuple):
+        return x
+    items = [_map_tensors(v, fn) for v in x]
+    return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
 
 
 class StepFns(NamedTuple):
@@ -196,10 +231,14 @@ def adam_direction_norm(optimizer: torch.optim.Adam, grads: dict) -> torch.Tenso
 
 
 def build_steps(cfg: EngineConfig, hand: HandModel | None = None,
-                device: torch.device | str | None = None) -> StepFns:
+                device: torch.device | str | None = None,
+                group: RankGroup | None = None) -> StepFns:
     """The step functions for ``cfg`` on ``device`` (CUDA by default; the
     hand model's device when one is given; the mesh ``cfg.mesh`` names when
-    none is)."""
+    none is). ``group``: this process's rank of a data-parallel group (its
+    device by default); None trains on one device."""
+    if device is None and group is not None and hand is None:
+        device = group.device
     dev = hand.kp_radius.device if hand is not None and device is None else resolve_device(device)
     if hand is None:
         hand = load_hand_model(device=dev, lite=cfg.mesh == "lite")
@@ -211,8 +250,19 @@ def build_steps(cfg: EngineConfig, hand: HandModel | None = None,
     num_real_rows = cfg.real_batch * NUM_VIEWS
     net_dtype = torch.bfloat16 if cfg.bf16 else torch.float32
 
+    def _row_weights(rows: RankRows | None) -> tuple[torch.Tensor | None, int | None]:
+        """(weights on the device, global total) of a rank's rows."""
+        if rows is None or rows.weights is None:
+            return None, None if rows is None else rows.total
+        return group.weights_on_device(rows), rows.total
+
+    def _global(metrics: dict) -> dict:
+        return metrics if group is None else group.sum_metrics(metrics)
+
     def init_state(generator: torch.Generator) -> TrainState:
         network = init_like_jax(make_network(cfg.num_stacks, dtype=net_dtype), generator).to(dev)
+        if group is not None:
+            _replicate(network)
         optimizer = torch.optim.Adam(network.parameters(), lr=cfg.lr,
                                      weight_decay=cfg.weight_decay)
         return TrainState(
@@ -221,6 +271,16 @@ def build_steps(cfg: EngineConfig, hand: HandModel | None = None,
             has_prev=torch.zeros((), dtype=torch.bool, device=dev),
         )
 
+    @torch.no_grad()
+    def _replicate(network: nn.Module) -> None:
+        """Rank 0's parameters on every rank, and a check that every rank
+        had drawn them already (the same CPU generator seed)."""
+        params = list(network.parameters())
+        own = [p.detach().clone() for p in params]
+        group.broadcast_(params)
+        if not all(torch.equal(a, p) for a, p in zip(own, params)):
+            raise RuntimeError(f"rank {group.rank} initialised other parameters than rank 0")
+
     def draw(generator: torch.Generator, synt: bool = True, real: bool = True,
              real_rows: int | None = None) -> StepDraws:
         """The draws of one step. ``real_rows`` is the flat real batch
@@ -228,7 +288,9 @@ def build_steps(cfg: EngineConfig, hand: HandModel | None = None,
         step's ``real_batch x NUM_VIEWS``; the real-only and eval steps
         draw for the batch they are given (``eval_batch x NUM_VIEWS`` in
         the engine). The resample draws come last, and only with
-        ``cfg.depth_resample``."""
+        ``cfg.depth_resample``. Under a group, the draws are those of the
+        whole batch (``real_rows`` counts the global batch), padded and
+        cut to this rank's rows."""
         rows = num_real_rows if real_rows is None else real_rows
         poses = sample_poses(generator, cfg.synt_batch) if synt else None
         synthesis = draw_synthesis(generator, cfg.synt_batch) if synt else None
@@ -238,7 +300,19 @@ def build_steps(cfg: EngineConfig, hand: HandModel | None = None,
         resample = cfg.depth_resample != 0
         rs_real = draw_depth_resample(generator, rows) if resample and real else None
         rs_synt = draw_depth_resample(generator, cfg.synt_batch) if resample and synt else None
-        return StepDraws(poses, synthesis, resize, noise, rs_real, rs_synt)
+        draws = StepDraws(poses, synthesis, resize, noise, rs_real, rs_synt)
+        if group is None:
+            return draws
+        synt_rows = group.rows(cfg.synt_batch) if synt else None
+        real_idx = sample_rows(group.rows(rows // NUM_VIEWS), NUM_VIEWS) if real else None
+        if group.world == 1:  # the whole batch: no gather
+            return draws._replace(synt_rows=synt_rows)
+
+        def on_dev(idx):
+            return None if idx is None else torch.as_tensor(idx, device=dev)
+
+        return draws.take(on_dev(None if synt_rows is None else synt_rows.index),
+                          on_dev(real_idx))._replace(synt_rows=synt_rows)
 
     def _resample(dms: torch.Tensor, uniforms: torch.Tensor | None) -> torch.Tensor:
         if not cfg.depth_resample:
@@ -261,12 +335,15 @@ def build_steps(cfg: EngineConfig, hand: HandModel | None = None,
     def _terms(state, synt, batch, scaled_real, scales, draws, is_mv):
         out = forward(state.network, synt_dms=None if synt is None else synt.dms,
                       real_dms=scaled_real, scales=scales)
+        synt_w, synt_total = _row_weights(draws.synt_rows)
         terms, _, new_prev = multitask_loss(
             loss_cfg, out, radii, vae=vae, synt_target=synt,
             real_target=None if batch is None else _real_target(batch),
             vae_noise=draws.vae_noise, is_mv=is_mv,
             prev_skel=state.prev_skel, has_prev=state.has_prev,
             real_weights=None if batch is None else batch.weights,
+            synt_weights=synt_w, real_total=None if batch is None else batch.total,
+            synt_total=synt_total, group=group,
         )
         return terms, out, new_prev
 
@@ -277,6 +354,8 @@ def build_steps(cfg: EngineConfig, hand: HandModel | None = None,
     def _backward(state, loss):
         state.network.zero_grad(set_to_none=True)
         loss.backward()
+        if group is not None:
+            group.sum_grads(state.network.parameters())
 
     def _apply_updates(state, lr, new_prev=None):
         for group in state.optimizer.param_groups:
@@ -297,9 +376,10 @@ def build_steps(cfg: EngineConfig, hand: HandModel | None = None,
         _backward(state, loss)
         _apply_updates(state, lr)
         metrics = _metrics(loss, terms)
-        metrics["synt_joint_err"] = torch.linalg.norm(
-            out.synt_xyz[-1].detach() - synt.xyz, dim=-1).mean()
-        return state, metrics
+        metrics["synt_joint_err"] = bmean(
+            torch.linalg.norm(out.synt_xyz[-1].detach() - synt.xyz, dim=-1),
+            *_row_weights(draws.synt_rows))
+        return state, _global(metrics)
 
     def _combined_inputs(draws, batch, real_aug, synt):
         synt = _synt(draws, synt)
@@ -319,7 +399,8 @@ def build_steps(cfg: EngineConfig, hand: HandModel | None = None,
         resize-crop augmentation."""
         loss, terms, *_ = _combined(state, draws, batch, is_mv, real_aug, synt)
         grads = {name: p.grad for name, p in state.network.named_parameters()}
-        return loss.detach(), {k: v.detach() for k, v in terms.items()}, grads
+        values = _global(_metrics(loss, terms))
+        return values.pop("loss"), values, grads
 
     def combined_term_diag(state: TrainState, draws: StepDraws, batch: RealBatch, is_mv,
                            real_aug: bool = True, synt: SyntheticBatch | None = None) -> dict:
@@ -347,13 +428,16 @@ def build_steps(cfg: EngineConfig, hand: HandModel | None = None,
                 grads = (None,) * len(params)
             grads_of[name] = [torch.zeros_like(p) if g is None else g
                               for p, g in zip(params, grads)]
+            if group is not None:
+                grads_of[name] = group.sum_tensors(grads_of[name])
+        terms = _global({k: v.detach() for k, v in terms.items()})
         total = [sum(grads_of[name][k] for name in names) for k in range(len(params))]
         total_norm = _global_norm(total)
         diag = {"total_grad_norm": total_norm}
         for name in names:
             g = grads_of[name]
             n = _global_norm(g)
-            diag[f"{name}/value"] = terms[name].detach()
+            diag[f"{name}/value"] = terms[name]
             diag[f"{name}/grad_norm"] = n
             diag[f"{name}/cos_total"] = _global_dot(g, total) / (n * total_norm + 1e-30)
         diag["update_norm"] = adam_direction_norm(state.optimizer, dict(zip(params, total)))
@@ -367,7 +451,7 @@ def build_steps(cfg: EngineConfig, hand: HandModel | None = None,
         _apply_updates(state, lr, new_prev)
         metrics = _metrics(loss, terms)
         metrics["avg_joint_error"] = average_joint_error(
-            batch.gt_joints, out.real_xyz[-1].detach(), weights=batch.weights)
+            batch.gt_joints, out.real_xyz[-1].detach(), weights=batch.weights, total=batch.total)
         vis = {
             "real_dms": scaled_real,
             "real_uv_hms": out.real_uv_hms[-1].detach(),
@@ -378,7 +462,7 @@ def build_steps(cfg: EngineConfig, hand: HandModel | None = None,
             "synt_gt_uv_hms": synt.uv_hms,
             "synt_gt_xyz": synt.xyz,
         }
-        return state, metrics, vis
+        return state, _global(metrics), vis
 
     def real_step(state: TrainState, lr: float, draws: StepDraws, batch: RealBatch):
         """Real-data-only self-supervised step (engine.py:150-263, Train mode)."""
@@ -389,10 +473,10 @@ def build_steps(cfg: EngineConfig, hand: HandModel | None = None,
         _apply_updates(state, lr, new_prev)
         metrics = _metrics(loss, terms)
         metrics["avg_joint_error"] = average_joint_error(
-            batch.gt_joints, out.real_xyz[-1].detach(), weights=batch.weights)
+            batch.gt_joints, out.real_xyz[-1].detach(), weights=batch.weights, total=batch.total)
         vis = {"real_dms": scaled_real, "real_uv_hms": out.real_uv_hms[-1].detach(),
                "real_xyz": out.real_xyz[-1].detach()}
-        return state, metrics, vis
+        return state, _global(metrics), vis
 
     @torch.no_grad()
     def eval_step(state: TrainState, draws: StepDraws, batch: RealBatch):
@@ -403,7 +487,8 @@ def build_steps(cfg: EngineConfig, hand: HandModel | None = None,
         ``temporal`` on, rows 1..B-1 are measured against their
         predecessors and row 0 against nothing (a zero skeleton, no
         previous batch), whatever the train state carries. Its input is
-        never resampled."""
+        never resampled. Under a group it returns the rank's rows' joints
+        and the global metrics."""
         eval_dtype = torch.float32 if eval_precision else state.network.dtype
         with float32_precision(eval_precision), _conv_dtype(state.network, eval_dtype):
             scaled_real = batch.dms * _C.depth_scale
@@ -414,16 +499,16 @@ def build_steps(cfg: EngineConfig, hand: HandModel | None = None,
                 vae_noise=draws.vae_noise, is_mv=True,
                 prev_skel=torch.zeros(last.shape[1:], dtype=last.dtype, device=last.device),
                 has_prev=torch.zeros((), dtype=torch.bool, device=last.device),
-                real_weights=batch.weights,
+                real_weights=batch.weights, real_total=batch.total, group=group,
             )
             est = out.real_xyz[-1][:, 0]  # (B, 41, 3), view 0
             denoised = denoiser(est)
         metrics = dict(terms)
         metrics["avg_joint_error"] = average_joint_error(
-            batch.gt_joints[:, 0], denoised, weights=batch.weights)
+            batch.gt_joints[:, 0], denoised, weights=batch.weights, total=batch.total)
         metrics["avg_joint_error_raw"] = average_joint_error(
-            batch.gt_joints[:, 0], est, weights=batch.weights)
-        return metrics, denoised
+            batch.gt_joints[:, 0], est, weights=batch.weights, total=batch.total)
+        return _global(metrics), denoised
 
     return StepFns(init_state, draw, synt_step, combined_step, combined_grads,
                    combined_term_diag, real_step, eval_step)

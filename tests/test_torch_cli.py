@@ -1,6 +1,7 @@
 """The port's CLI (``python -m spherehand_torch``) against the JAX package's:
 the same flags and defaults, every field mapped, the single-card switches
-run, data parallelism over several cards refused."""
+run, and the rank plan of data parallelism (one rank per card, the
+launcher's group joined, ``--temporal``'s largest divisor)."""
 import dataclasses
 import json
 import os
@@ -14,7 +15,8 @@ torch = pytest.importorskip("torch")
 
 from spherehand_tpu.train import cli as jcli  # noqa: E402
 from spherehand_torch.train import cli  # noqa: E402
-from spherehand_torch.train.config import EngineConfig, refuse_queued  # noqa: E402
+from spherehand_torch.parallel.mesh import RankPlan, rank_plan, temporal_message  # noqa: E402
+from spherehand_torch.train.config import EngineConfig  # noqa: E402
 from spherehand_torch.train.engine import Engine  # noqa: E402
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
@@ -84,15 +86,14 @@ def test_every_flag_reaches_its_field():
 ])
 def test_queued_switches_raise(argv, item, tmp_path):
     """The switches once queued under ``item`` are ported and no longer
-    raise: each flag, parsed by ``config_from_args``, passes
-    ``refuse_queued`` and trains one synthetic epoch on the CPU through the
+    raise: each flag, parsed by ``config_from_args``, trains one synthetic
+    epoch on the CPU through the
     ``Engine`` (``synt_iters_per_epoch`` 1 and synt 2, set on the parsed
     configuration: the CLI has no flag for them), with finite metrics and
     the switch in effect."""
     args = cli.build_parser().parse_args(
         ["--mode", "Train", "--device", "cpu", "--model_dir", str(tmp_path)] + argv)
     cfg = cli.config_from_args(args)
-    refuse_queued(cfg, torch.device(args.device))
     cfg = dataclasses.replace(cfg, synt_iters_per_epoch=1, synt_batch=2, real_batch=1)
     engine = Engine(cfg, device=args.device)
     engine._epoch_synt(0)
@@ -108,14 +109,36 @@ def test_queued_switches_raise(argv, item, tmp_path):
     assert engine.state.step == 1
 
 
-def test_data_parallel_over_several_cards_raises(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(ValueError, match="Queue 1 item 5"):
-        refuse_queued(EngineConfig(), torch.device("cuda"))
-    refuse_queued(EngineConfig(data_parallel=False), torch.device("cuda"))
-    refuse_queued(EngineConfig(), torch.device("cpu"))
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    refuse_queued(EngineConfig(), torch.device("cuda"))
+def test_rank_plan_places_one_rank_per_card():
+    """``rank_plan``: 2 cards with ``data_parallel`` give 2 spawned ranks,
+    ``--no_data_parallel`` one; one card or the CPU one; a launcher's
+    environment is joined as it is (and refused with
+    ``--no_data_parallel``); ``--temporal`` takes the largest rank count
+    dividing every batch, with the JAX engine's message."""
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    parse = cli.build_parser().parse_args
+    on = cli.config_from_args(parse([]))
+    off = cli.config_from_args(parse(["--no_data_parallel"]))
+    assert rank_plan(on, cuda, 2, {}) == RankPlan(2, "spawn")
+    assert rank_plan(off, cuda, 2, {}) == RankPlan(1, "single")
+    assert rank_plan(on, cuda, 1, {}) == RankPlan(1, "single")
+    assert rank_plan(on, cpu, 0, {}) == RankPlan(1, "single")
+    env = {"WORLD_SIZE": "2", "RANK": "1", "LOCAL_RANK": "1"}
+    assert rank_plan(on, cuda, 1, env) == RankPlan(2, "join")
+    assert rank_plan(on, cpu, 0, env) == RankPlan(2, "join")
+    assert rank_plan(on, cuda, 4, {"WORLD_SIZE": "1"}) == RankPlan(1, "single")
+    with pytest.raises(ValueError, match="no_data_parallel"):
+        rank_plan(off, cuda, 2, env)
+    temporal = cli.config_from_args(parse(["--temporal"]))  # 25 / 48 / 8: one rank
+    assert rank_plan(temporal, cuda, 8, {}) == RankPlan(1, "single", temporal_message(1, 8))
+    even = dataclasses.replace(temporal, real_batch=24, synt_batch=48, eval_batch=6)
+    assert rank_plan(even, cuda, 8, {}) == RankPlan(6, "spawn", temporal_message(6, 8))
+    assert rank_plan(even, cuda, 3, {}) == RankPlan(3, "spawn")
+    assert temporal_message(6, 8) == ("[engine] --temporal: data-parallel over 6/8 devices "
+                                      "(padding is incompatible with the consecutive-frame "
+                                      "loss)")
+    with pytest.raises(ValueError, match="does not divide"):
+        rank_plan(temporal, cuda, 1, env)
 
 
 def test_module_entry_point(tmp_path):

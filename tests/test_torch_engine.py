@@ -345,3 +345,102 @@ def test_engine_refuses_to_fall_back_to_cpu(data_dir, tmp_path):
         Engine(_cfg(tmp_path, data_dir))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         load_estimator(os.path.join(tmp_path, "missing.pt"))
+
+
+RANK_CHILD = r"""
+import dataclasses, json, os, sys
+import torch
+torch.set_num_threads(1)
+from spherehand_torch.parallel.mesh import form_group, leave_group
+from spherehand_torch.train import cli
+from spherehand_torch.train.config import EngineConfig
+
+rank, init, fields, out = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+cfg = EngineConfig(**json.loads(fields))
+group = form_group(rank, 2, "cpu", init, timeout_s=60)
+try:
+    engine = cli.run(cfg, torch.device("cpu"), group)
+    torch.save(engine.state.network.state_dict(), os.path.join(out, f"params{rank}.pt"))
+    ckpt = os.path.join(engine.model_path, "model_0.pt")
+    cli.run(dataclasses.replace(cfg, mode="Test", initial_model=ckpt), torch.device("cpu"), group)
+finally:
+    leave_group()
+"""
+
+
+def test_engine_over_two_gloo_ranks_equals_one(tmp_path, data_dir):
+    """The engine as 2 gloo ranks (spawned, the CLI's ``run`` with a
+    file-rendezvous group) on the fake shards: one combined epoch of 2
+    steps at real batch 1 (rank 1's rows are all padding) and synthetic
+    batch 2, then eval of its checkpoint at eval batch 3 (padded to 4).
+    Both ranks end with the same parameters bit for bit; rank 0 alone
+    writes the one run directory, its records and checkpoints; the first
+    step's logged loss equals one device's within 1e-6 relative (later
+    steps drift apart through Adam's sign-like first updates); the eval's
+    ``result.npz`` holds the eval plan's rows and equals one device's eval
+    of the same checkpoint within 1e-4 mm; under ``--temporal`` a group
+    whose rank count does not divide every batch is refused."""
+    import dataclasses
+    import subprocess
+    import sys
+
+    from spherehand_torch.parallel.mesh import RankGroup
+
+    fields = dict(mode="Train", dataset_dir=data_dir, epoch=1, real_batch=1, synt_batch=2,
+                  eval_batch=3, synt_iters_per_epoch=1, mesh="lite", device_data="off",
+                  eval_precision="highest", tag="dp_")
+    runs = {}
+    for name in ("one", "two"):
+        (tmp_path / name).mkdir()
+        runs[name] = dict(fields, model_dir=str(tmp_path / name))
+    init = "file://" + str(tmp_path / "rendezvous")
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen([sys.executable, "-c", RANK_CHILD, str(r), init,
+                               json.dumps(runs["two"]), str(tmp_path)], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # as the ranks: oneDNN rounds by thread count
+    try:
+        one = Engine(EngineConfig(**runs["one"]), device="cpu")
+        one.train()
+        logs = [p.communicate(timeout=240)[0] for p in procs]
+        assert [p.returncode for p in procs] == [0, 0], [log[-3000:] for log in logs]
+        run_dirs = sorted(os.listdir(tmp_path / "two"))
+        assert len(run_dirs) == 2  # the training run and the eval run, each named by rank 0
+        train_dir, eval_dir = (
+            sorted(run_dirs, key=lambda d: not os.path.exists(tmp_path / "two" / d / "model_0.pt")))
+        ev = Engine(EngineConfig(**{**runs["one"], "mode": "Test", "initial_model": str(
+            tmp_path / "two" / train_dir / "model_0.pt")}), device="cpu")
+        ev.eval()
+    finally:
+        torch.set_num_threads(threads)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+
+    params = [torch.load(tmp_path / f"params{r}.pt", weights_only=True) for r in range(2)]
+    assert all(torch.equal(v, params[1][k]) for k, v in params[0].items())
+    assert one.state.step == 2
+    names = set(os.listdir(tmp_path / "two" / train_dir))
+    assert {"model_0.pt", "model_-1.pt", "log.txt", "metrics.jsonl", "config.json"} <= names
+    with open(tmp_path / "two" / train_dir / "log.txt") as f:
+        assert "data-parallel over 2 ranks (gloo)" in f.read()
+    with open(tmp_path / "two" / train_dir / "metrics.jsonl") as f:
+        (record,) = [json.loads(line) for line in f]  # rank 0 alone writes
+    (ref,) = _records(one)
+    assert record["it"] == ref["it"] == 0
+    assert abs(record["loss"] - ref["loss"]) <= 1e-6 * abs(ref["loss"])
+    with np.load(tmp_path / "two" / eval_dir / "result.npz") as f, \
+            np.load(os.path.join(ev.model_path, "result.npz")) as g:
+        assert f["est"].shape == g["est"].shape == (3, 41, 3)
+        np.testing.assert_array_equal(f["gt"], g["gt"])
+        np.testing.assert_allclose(f["est"], g["est"], atol=1e-4)
+
+    temporal = EngineConfig(**dict(runs["one"], temporal=True, real_batch=3))
+    with pytest.raises(ValueError, match="temporal over 2 ranks"):
+        Engine(temporal, group=RankGroup(0, 2, torch.device("cpu"), "gloo"))
+    with pytest.raises(ValueError, match="temporal over 2 ranks"):
+        Engine(dataclasses.replace(temporal, real_batch=2), group=RankGroup(
+            0, 2, torch.device("cpu"), "gloo"))  # eval batch 3
