@@ -155,7 +155,26 @@ Phases, each fatal on failure:
          gone;
      (e) python -m spherehand_torch.doctor: every check passes;
  15. python -m spherehand_torch.bench once: its line holds every key of
-     bench.py plus the card's name and power limit, all numbers finite.
+     bench.py plus the card's name and power limit, all numbers finite;
+ 16. the evidence path (spherehand_torch.tools) at the full widths, short:
+     (1) train_synthetic_full, 200 steps at 48 on the StepLR thirds, its
+         checkpoint, flat params and history; the mean loss of the last 20
+         steps below the first 20's;
+     (2) eval_synthetic on 256 held-out noisy hands from that checkpoint,
+         and from the shipped weights (under phase 4's 25 mm);
+     (3) the shipped weights in the reference's layout
+         (convert.reference_state_from_hourglass) saved as a .pth in a
+         {"state_dict"} envelope with module. prefixes, imported by
+         import_torch_checkpoint: parameters equal to the shipped ones bit
+         for bit, joints within 1e-4 mm of phase 4's estimator on its crops;
+     (4) generate_pseudo_nyu of 256 train and 64 test hands through the
+         shifted sensor (the fast raster), self-check under 0.5 mm;
+     (5) selfsup_demo from the shipped weights, one epoch over those
+         shards, then again with --no_mv: before and after finite;
+     (6) parity_eval of (3)'s .pth over the test shards;
+     (7) lite_mesh_e2e --arms lite,full --steps 100;
+     raster_fast_pooled and the fused sphere forward, backward and primal
+     launched by this phase, each sub-step's seconds printed.
 
 The last three lines of standard output are the kernels JSON line, the card's
 name and power limit, and the result line. Exits non-zero without a GPU.
@@ -312,6 +331,23 @@ P14_SERVE_CHUNK = 128
 P14_SERVE_MM = 1e-3
 P14_TIMEOUT_S = 300
 P15_TIMEOUT_S = 600
+# Phase 16: the evidence path at the full widths (synt_batch 48, real 25 x
+# 3, eval batch 8), short: 200 synthetic steps (loss of the last 20 below
+# the first 20's), 256 held-out hands (the shipped weights under phase 4's
+# 25 mm), the reference-layout import (parameters bit for bit, joints within
+# 1e-4 mm of phase 4's estimator on its crops), pseudo-NYU 256 + 64 hands
+# (self-check under 0.5 mm), one adaptation epoch with and without the
+# multi-view terms, the parity drill, 100 steps a lite / full arm.
+P16_SYNT_STEPS = 200
+P16_LOSS_WINDOW = 20
+P16_HELDOUT = 256
+P16_SHIPPED_MM = 25.0
+P16_IMPORT_MM = 1e-4
+P16_TRAIN, P16_TEST = 256, 64
+P16_SELF_CHECK_MM = 0.5
+P16_LITE_STEPS = 100
+P16_KERNELS = ("raster_fast_pooled", "sphere_fused_fwd", "sphere_fused_bwd",
+               "sphere_fused_primal")
 BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "mesh", "full_exact_fps", "lite_fps",
               "lite_exact_fps", "train_combined_steps_per_sec",
               "train_combined_bf16_steps_per_sec", "train_epoch_steps_per_sec",
@@ -1213,6 +1249,135 @@ def bench_phase(smi: str) -> None:
         f"phase {time.perf_counter() - t0:.2f} s")
 
 
+def evidence_phase(params, crops_mm, joints, dev, seed: int, smi: str) -> None:
+    """Phase 16: the evidence path (``spherehand_torch.tools``) at the full
+    widths, short; ``crops_mm`` and ``joints`` are phase 4's fast crops and
+    its estimator's joints."""
+    import shutil
+    import tempfile
+
+    from spherehand_torch import convert
+    from spherehand_torch.data.pseudo_real import generate_pseudo_nyu
+    from spherehand_torch.hand.assets import load_hand_model
+    from spherehand_torch.infer import PoseEstimator
+    from spherehand_torch.models.estimator import make_network
+    from spherehand_torch.render import raster_cuda, sphere_cuda
+    from spherehand_torch.tools import (
+        eval_synthetic,
+        import_torch_checkpoint,
+        lite_mesh_e2e,
+        parity_eval,
+        selfsup_demo,
+        train_synthetic_full,
+    )
+
+    t_phase = time.perf_counter()
+    secs = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_evidence_")
+    torch.cuda.synchronize()
+    raster_cuda.reset_launch_counts()
+    sphere_cuda.reset_launch_counts()
+    try:
+        # (1) synthetic pretraining, 200 steps
+        t0 = time.perf_counter()
+        run = train_synthetic_full.train_synthetic(P16_SYNT_STEPS, device=dev, log_every=100)
+        paths = train_synthetic_full.save_run(os.path.join(tmp, "synthetic"), run)
+        first = float(run.losses[:P16_LOSS_WINDOW].mean())
+        last = float(run.losses[-P16_LOSS_WINDOW:].mean())
+        secs["train_synthetic_full"] = time.perf_counter() - t0
+        log(f"[16] (1) train_synthetic_full {P16_SYNT_STEPS} steps at 48: mean loss of the first "
+            f"{P16_LOSS_WINDOW} {first:.2f}, of the last {last:.2f}; error {run.errors[0]:.2f} -> "
+            f"{run.errors[-1]:.2f} mm; {P16_SYNT_STEPS / run.seconds:.2f} steps/s")
+        if not (np.isfinite(run.losses).all() and last < first):
+            fail(f"[16] synthetic loss did not fall: {first} -> {last}")
+
+        # (2) held-out eval of that checkpoint and of the shipped weights
+        t0 = time.perf_counter()
+        trained = eval_synthetic.evaluate(paths["model_final.pt"], P16_HELDOUT, 128, dev)
+        shipped = float(eval_synthetic.heldout_errors(
+            eval_synthetic.load_network(PARAMS, dev), load_hand_model(device=dev),
+            P16_HELDOUT).mean())
+        secs["eval_synthetic"] = time.perf_counter() - t0
+        log(f"[16] (2) eval_synthetic on {P16_HELDOUT} held-out hands: the {P16_SYNT_STEPS}-step "
+            f"checkpoint {trained['mean_mm']:.3f} mm, the shipped weights {shipped:.3f} mm")
+        if not (trained["errors"].shape == (P16_HELDOUT, 41) and np.isfinite(trained["mean_mm"])
+                and shipped < P16_SHIPPED_MM):
+            fail(f"[16] held-out eval: trained {trained['mean_mm']}, shipped {shipped} mm")
+
+        # (3) the reference-layout import round trip
+        t0 = time.perf_counter()
+        network = convert.load_hourglass(make_network(1), params)
+        reference = convert.reference_state_from_hourglass(network)
+        pth = os.path.join(tmp, "reference.pth")
+        torch.save({"state_dict": {"module." + k: v for k, v in reference.items()}}, pth)
+        imported = import_torch_checkpoint.import_checkpoint(
+            pth, os.path.join(tmp, "imported.npz"), num_stacks=1)
+        want, got = convert.flatten_params(params), convert.flatten_params(imported)
+        same = want.keys() == got.keys() and all(
+            want[k].dtype == got[k].dtype and np.array_equal(want[k], got[k]) for k in want)
+        served = PoseEstimator(imported, num_stacks=1, denoise=True, precision="highest",
+                               device=dev).predict(crops_mm)
+        gap = float(np.abs(served - joints).max())
+        secs["import_torch_checkpoint"] = time.perf_counter() - t0
+        log(f"[16] (3) import round trip: {len(got)} arrays equal bit for bit {same}; joints "
+            f"{gap:.3g} mm from phase 4's")
+        if not (same and gap <= P16_IMPORT_MM):
+            fail(f"[16] import round trip: bit for bit {same}, joints {gap} mm")
+
+        # (4) pseudo-NYU through the shifted sensor
+        t0 = time.perf_counter()
+        out = os.path.join(tmp, "selfsup")
+        checks = [generate_pseudo_nyu(os.path.join(out, "data", split), n, seed + off, dev)
+                  for split, n, off in (("train", P16_TRAIN, 0),
+                                        ("test", P16_TEST, selfsup_demo.TEST_SEED_OFFSET))]
+        secs["generate_pseudo_nyu"] = time.perf_counter() - t0
+        log(f"[16] (4) pseudo-NYU {P16_TRAIN} + {P16_TEST} hands x 3 views, self-check "
+            f"{max(checks):.4g} mm")
+        if not max(checks) < P16_SELF_CHECK_MM:
+            fail(f"[16] pseudo-NYU self-check {checks} mm")
+
+        # (5) one adaptation epoch, with and without the multi-view terms
+        results = {}
+        for no_mv in (False, True):
+            t0 = time.perf_counter()
+            results[no_mv] = selfsup_demo.run(out=out, samples=P16_TRAIN, test=P16_TEST,
+                                              epochs=1, no_mv=no_mv, seed=seed, device=dev)
+            secs["selfsup_demo" + ("_no_mv" if no_mv else "")] = time.perf_counter() - t0
+        for no_mv, r in results.items():
+            log(f"[16] (5) selfsup_demo no_mv={no_mv}: {r['steps']} steps, before "
+                f"{r['before_mm']} mm, after {r['after_mm']} mm ({r['backend']})")
+            if not (np.isfinite([r["before_mm"], r["after_mm"]]).all() and r["steps"] > 0):
+                fail(f"[16] selfsup_demo no_mv={no_mv}: {r}")
+
+        # (6) the parity drill on the imported .pth
+        t0 = time.perf_counter()
+        drill = parity_eval.run_parity_eval(pth, os.path.join(out, "data"), 1,
+                                            os.path.join(tmp, "parity"), device=dev)
+        secs["parity_eval"] = time.perf_counter() - t0
+        log(f"[16] (6) parity_eval: {json.dumps(drill)}")
+        if not (drill["num_samples"] == P16_TEST and np.isfinite(drill["avg_joint_error_mm"])):
+            fail(f"[16] parity_eval: {drill}")
+
+        # (7) lite against full
+        t0 = time.perf_counter()
+        arms = lite_mesh_e2e.run_arms(["lite", "full"], P16_LITE_STEPS,
+                                      os.path.join(tmp, "lite_mesh_e2e.json"), device=dev)
+        secs["lite_mesh_e2e"] = time.perf_counter() - t0
+        log(f"[16] (7) lite_mesh_e2e {P16_LITE_STEPS} steps: {json.dumps(arms)}")
+        if not all(np.isfinite(arms[a]["heldout_mm"]) for a in ("lite", "full")):
+            fail(f"[16] lite_mesh_e2e: {arms}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in {**raster_cuda.LAUNCHES, **sphere_cuda.LAUNCHES}.items() if v}
+    missing = [k for k in P16_KERNELS if not launches.get(k)]
+    if missing:
+        fail(f"[16] kernels not launched by the evidence path: {missing} ({launches})")
+    log(f"[16] seconds by sub-step: {json.dumps({k: round(v, 2) for k, v in secs.items()})}")
+    log(f"[16] launches (counted from 0): {json.dumps(launches)} | {smi}; "
+        f"phase {time.perf_counter() - t_phase:.2f} s")
+
+
 def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
@@ -1820,6 +1985,9 @@ def main() -> int:
 
     # --------------------------------------------------------------- 15
     bench_phase(smi)
+
+    # --------------------------------------------------------------- 16
+    evidence_phase(params, *crops["fast"], dev, args.seed, smi)
 
     print(json.dumps({"kernels": kernel_rows}))
     print(smi)

@@ -18,6 +18,9 @@ Same layer layout as the JAX package, so each counterpart is easy to find:
   utils/       step timing and tracing
   parallel/    data parallelism: rank groups, the zero-weight pad plan, the
                summed gradients; N ranks checked against one device
+  tools/       the evidence path, one module a JAX tool of the same name:
+               ``.pth`` import, parity drill, synthetic pretraining and
+               held-out eval, lite against full, the self-supervision demo
   infer.py     ``PoseEstimator`` and ``load_estimator``, the serving surface
                (over several devices with ``devices=``)
   convert.py   carries the JAX package's weights across

@@ -8,6 +8,12 @@
 - Denoiser and pose VAE: ``assets/pose_denoiser.npz`` and
   ``assets/pose_vae.npz`` are already in PyTorch layout, keyed by the
   reference ``nn.Sequential`` indices.
+- Reference layout: :func:`reference_hourglass_state` maps the reference's
+  own ``HourglassNet`` state_dict (``conv1``, ``bn1``, ``layer1.0.…``,
+  ``hg.{s}.hg.{i}.{j}.0.…``, ``res.{s}.0``, ``fc.{s}.{0,1}``, ``score.{s}``,
+  ``fc_.{s}``, ``score_.{s}``; a released ``.pth``) onto the port's
+  module, whose convolutions are OIHW as the reference's, and
+  :func:`reference_state_from_hourglass` maps it back.
 - Back to flax: :func:`flax_arrays` maps a ``HourglassNet`` state (weights
   or gradients) onto the flax keys and layouts, so that the port's
   gradients compare with the JAX package's; :func:`flax_params` gives the
@@ -20,9 +26,13 @@ and buffer, or raises.
 """
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 from torch import nn
+
+from spherehand_torch.models.hourglass import HourglassNet
 
 # Reference nn.Sequential index -> PoseDenoiser submodule.
 DENOISER_LAYERS = {
@@ -84,6 +94,57 @@ def hourglass_state_dict(params: dict) -> dict[str, torch.Tensor]:
 def load_hourglass(module: nn.Module, params: dict) -> nn.Module:
     _load_exact(module, hourglass_state_dict(params))
     return module
+
+
+# Port module path -> the reference's (network/hourglass.py); a bottleneck's
+# submodule (the group ``b``) is renamed through _REFERENCE_BLOCK.
+_REFERENCE_MODULES = (
+    (r"conv1", "conv1"), (r"gn1", "bn1"), (r"layer(?P<k>\d)\.(?P<b>\w+)", "layer{k}.0.{b}"),
+    (r"hg(?P<s>\d+)\.b(?P<i>\d+)_(?P<j>\d+)\.(?P<b>\w+)", "hg.{s}.hg.{i}.{j}.0.{b}"),
+    (r"res(?P<s>\d+)\.(?P<b>\w+)", "res.{s}.0.{b}"), (r"fc_conv(?P<s>\d+)", "fc.{s}.0"),
+    (r"fc_gn(?P<s>\d+)", "fc.{s}.1"), (r"score(?P<s>\d+)", "score.{s}"),
+    (r"inter_fc(?P<s>\d+)", "fc_.{s}"), (r"inter_score(?P<s>\d+)", "score_.{s}"),
+)
+_REFERENCE_BLOCK = {"gn1": "bn1", "gn2": "bn2", "gn3": "bn3", "conv1": "conv1",
+                    "conv2": "conv2", "conv3": "conv3", "down": "downsample.0"}
+
+
+def reference_name(name: str) -> str:
+    """A port ``HourglassNet`` entry (``hg0.b1_2.gn1.weight``) -> the
+    reference's (``hg.0.hg.1.2.0.bn1.weight``)."""
+    path, leaf = name.rsplit(".", 1)
+    for pattern, template in _REFERENCE_MODULES:
+        m = re.fullmatch(pattern, path)
+        if m:
+            groups = m.groupdict()
+            if "b" in groups:
+                groups["b"] = _REFERENCE_BLOCK[groups["b"]]
+            return f"{template.format(**groups)}.{leaf}"
+    raise ValueError(f"no reference name for {name}")
+
+
+def reference_hourglass_state(state: dict, num_stacks: int) -> dict[str, torch.Tensor]:
+    """The reference's ``HourglassNet`` state_dict (keys with ``.`` or
+    ``/`` separators, tensors or arrays; e.g. a released ``.pth`` or
+    ``tests/goldens/hourglass.npz``) -> the port's ``HourglassNet``
+    state_dict for ``num_stacks``. Every entry of either side must be
+    matched, or it raises. Both lay convolutions out OIHW: no transpose."""
+    given = {k.replace("/", "."): v for k, v in state.items()}
+    with torch.device("meta"):
+        names = list(HourglassNet(num_stacks).state_dict())
+    wanted = {name: reference_name(name) for name in names}
+    missing = sorted(set(wanted.values()) - set(given))
+    unused = sorted(set(given) - set(wanted.values()))
+    if missing or unused:
+        raise ValueError(f"reference hourglass mismatch: missing {missing}, unused {unused}")
+    return {name: torch.as_tensor(given[ref]) for name, ref in wanted.items()}
+
+
+def reference_state_from_hourglass(module: nn.Module) -> dict[str, torch.Tensor]:
+    """A port ``HourglassNet`` -> the reference's state_dict (``.`` keys,
+    CPU tensors), the inverse of :func:`reference_hourglass_state`."""
+    return {reference_name(name): value.detach().cpu().clone()
+            for name, value in module.state_dict().items()}
 
 
 def flax_arrays(named: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:

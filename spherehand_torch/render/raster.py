@@ -103,12 +103,13 @@ def face_setup(face_vertices: torch.Tensor):
 
 
 def _face_chunk_depth(p, face_inv, valid, sample_x, sample_y, width, height):
-    """Min depth over a face chunk at every sample. p: (B, C, 3, 3) sorted.
+    """Min depth over a face chunk at every sample. p: (B, C, 3, 3) sorted;
+    sample_x (B, Sx) and sample_y (B, Sy), each image's own samples.
     Returns (B, Sy, Sx)."""
     px = [p[..., k, 0, None, None] for k in range(3)]  # (B, C, 1, 1)
     py = [p[..., k, 1, None, None] for k in range(3)]
-    sx = sample_x[None, None, None, :]  # (1, 1, 1, Sx)
-    sy = sample_y[None, None, :, None]  # (1, 1, Sy, 1)
+    sx = sample_x[:, None, None, :]  # (B, 1, 1, Sx)
+    sy = sample_y[:, None, :, None]  # (B, 1, Sy, 1)
 
     def edge_y(a: int, b: int) -> torch.Tensor:
         dx = px[b] - px[a]
@@ -156,6 +157,63 @@ def face_chunk_size(batch: int, num_samples: int) -> int:
     return max(1, min(128, (1 << 27) // max(1, batch * num_samples)))
 
 
+def _spread_bits(v: torch.Tensor) -> torch.Tensor:
+    """The 10 low bits of ``v`` moved to the even bit positions."""
+    v = (v | (v << 8)) & 0x00FF00FF
+    v = (v | (v << 4)) & 0x0F0F0F0F
+    v = (v | (v << 2)) & 0x33333333
+    return (v | (v << 1)) & 0x55555555
+
+
+def _spatial_order(p: torch.Tensor) -> torch.Tensor:
+    """(B, F) each image's faces along a Z-order curve of their centres (in
+    8-pixel cells), so that consecutive faces cover a compact part of the
+    image. The z-buffer min does not depend on the faces' order."""
+    cells = torch.nan_to_num(p[..., :2].mean(-2) / 8.0).clamp(0, 1023).long()
+    key = _spread_bits(cells[..., 0]) | (_spread_bits(cells[..., 1]) << 1)
+    return key.argsort(dim=1, stable=True)
+
+
+def _chunk_windows(p: torch.Tensor, valid: torch.Tensor, chunk: int, sample_x: torch.Tensor,
+                   sample_y: torch.Tensor) -> tuple[torch.Tensor, list[list[int]]]:
+    """Per image and chunk of ``chunk`` faces, a sample window outside which
+    no face of the chunk covers a sample of that image: the valid faces'
+    vertex box widened by one pixel, which holds the row span's interpolated
+    edges whatever their rounding. A chunk with no valid face in an image
+    gets an empty window there; one with a NaN vertex, or with a vertex left
+    of x = 0 on a grid that samples x <= 0, the whole grid (a face ending in
+    (-1, 0) spans column 0 by the reference's truncation, at rows
+    extrapolated off its edges).
+
+    Returns the windows' first row and column (B, chunks, 2), on the device,
+    and per chunk its (rows, columns): the largest window of the batch, which
+    every image's window, moved back where it would cross the grid's end,
+    fits. One host read for all chunks."""
+    pad = (-p.shape[-3]) % chunk
+
+    def per_chunk(values: torch.Tensor, fill: float, reduce) -> torch.Tensor:
+        values = torch.nn.functional.pad(torch.where(valid, values, fill), (0, pad), value=fill)
+        return reduce(values.reshape(values.shape[0], -1, chunk), dim=2)  # (B, chunks)
+
+    inf = float("inf")
+    x, y = p[..., 0], p[..., 1]
+    lo_x = per_chunk(x.amin(-1), inf, torch.amin) - 1.0
+    hi_x = per_chunk(x.amax(-1), -inf, torch.amax) + 1.0
+    lo_y = per_chunk(y.amin(-1), inf, torch.amin) - 1.0
+    hi_y = per_chunk(y.amax(-1), -inf, torch.amax) + 1.0
+    column0 = (sample_x <= 0.0).any()
+    anywhere = torch.stack([lo_x, hi_x, lo_y, hi_y]).isnan().any(0) | ((lo_x < -1.0) & column0)
+    num_y, num_x = sample_y.shape[0], sample_x.shape[0]
+    y0 = torch.where(anywhere, 0, torch.searchsorted(sample_y, lo_y))
+    y1 = torch.where(anywhere, num_y, torch.searchsorted(sample_y, hi_y, right=True))
+    x0 = torch.where(anywhere, 0, torch.searchsorted(sample_x, lo_x))
+    x1 = torch.where(anywhere, num_x, torch.searchsorted(sample_x, hi_x, right=True))
+    rows = (y1 - y0).clamp(min=0).amax(0)  # (chunks,)
+    cols = (x1 - x0).clamp(min=0).amax(0)
+    starts = torch.stack([torch.minimum(y0, num_y - rows), torch.minimum(x0, num_x - cols)], -1)
+    return starts, torch.stack([rows, cols], -1).tolist()
+
+
 def rasterize_depth(
     face_vertices: torch.Tensor,
     sample_x: torch.Tensor,
@@ -165,24 +223,42 @@ def rasterize_depth(
 ) -> torch.Tensor:
     """Z-buffer depth at integer-valued sample positions (plain exact).
 
-    face_vertices: (B, F, 3, 3); sample_x (Sx,), sample_y (Sy,) float.
-    Returns (B, Sy, Sx) with background 1000. A loop over face chunks, each a
-    broadcast over (face, sample) pairs and a min over faces.
+    face_vertices: (B, F, 3, 3); sample_x (Sx,), sample_y (Sy,) float,
+    ascending. Returns (B, Sy, Sx) with background 1000. Each image's faces
+    in a Z-order of their centres (:func:`_spatial_order`), then a loop over
+    chunks of them, each a broadcast over (face, sample) pairs inside each
+    image's window for the chunk (:func:`_chunk_windows`; outside it the
+    chunk covers nothing) and a min over faces.
     """
+    for samples in (sample_x, sample_y):  # the windows' searchsorted needs them in order
+        if bool((samples[1:] < samples[:-1]).any()):
+            raise ValueError("rasterize_depth: sample positions must be ascending")
     batch, num_faces = face_vertices.shape[:2]
+    dev = face_vertices.device
     p, face_inv, valid = face_setup(face_vertices)
+    order = _spatial_order(p)
+    p = torch.take_along_dim(p, order[..., None, None], dim=1)
+    face_inv = torch.take_along_dim(face_inv, order[..., None, None], dim=1)
+    valid = torch.take_along_dim(valid, order, dim=1)
     zbuf = torch.full(
         (batch, sample_y.shape[0], sample_x.shape[0]), BACKGROUND_INIT,
-        dtype=face_vertices.dtype, device=face_vertices.device,
+        dtype=face_vertices.dtype, device=dev,
     )
     chunk = face_chunk_size(batch, zbuf[0].numel())
-    for s in range(0, num_faces, chunk):
+    starts, sizes = _chunk_windows(p, valid, chunk, sample_x, sample_y)
+    image = torch.arange(batch, device=dev)[:, None, None]
+    for c, (s, (num_rows, num_cols)) in enumerate(zip(range(0, num_faces, chunk), sizes)):
+        if num_rows == 0 or num_cols == 0:
+            continue
         e = min(s + chunk, num_faces)
+        rows = starts[:, c, :1] + torch.arange(num_rows, device=dev)  # (B, rows)
+        cols = starts[:, c, 1:] + torch.arange(num_cols, device=dev)  # (B, cols)
         depth = _face_chunk_depth(
-            p[:, s:e], face_inv[:, s:e], valid[:, s:e], sample_x, sample_y,
+            p[:, s:e], face_inv[:, s:e], valid[:, s:e], sample_x[cols], sample_y[rows],
             width, height,
         )
-        zbuf = torch.minimum(zbuf, depth)
+        window = (image, rows[:, :, None], cols[:, None, :])
+        zbuf[window] = torch.minimum(zbuf[window], depth)
     return zbuf
 
 

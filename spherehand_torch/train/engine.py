@@ -103,6 +103,18 @@ def step_seed(seed: int, epoch: int, it: int) -> int:
     return int(words[0]) | (int(words[1]) & 0x7FFFFFFF) << 32
 
 
+def save_state(path: str, state, epoch: int) -> None:
+    """A train state as the engine's checkpoint file (``torch.save``,
+    written whole or not at all): the network and optimizer state, the
+    step, the temporal-loss state and ``epoch``, the epoch it holds;
+    ``infer.load_estimator`` serves it."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save({"network": state.network.state_dict(), "optimizer": state.optimizer.state_dict(),
+                "step": state.step, "prev_skel": state.prev_skel, "has_prev": state.has_prev,
+                "epoch": epoch}, tmp)
+    os.replace(tmp, path)
+
+
 def _prefetch(iterable, depth: int = 2):
     """Background-thread prefetch: the loader's memmap gather runs while
     the previous step's device work is in flight. If the consumer abandons
@@ -328,15 +340,9 @@ class Engine:
         if not self.is_main:
             self.group.barrier()
             return
-        st = self.state
-        path = self._checkpoint_path(which)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        torch.save({"network": st.network.state_dict(), "optimizer": st.optimizer.state_dict(),
-                    "step": st.step, "prev_skel": st.prev_skel, "has_prev": st.has_prev,
-                    "epoch": epoch}, tmp)
-        os.replace(tmp, path)
+        save_state(self._checkpoint_path(which), self.state, epoch)
         with open(os.path.join(self.model_path, f"model_{which}.meta.json"), "w") as f:
-            json.dump({"epoch": epoch, "step": st.step}, f)
+            json.dump({"epoch": epoch, "step": self.state.step}, f)
         if self.group is not None:
             self.group.barrier()
 

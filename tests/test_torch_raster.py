@@ -301,3 +301,14 @@ def test_render_sample_grid_is_built_once_per_device():
     grid = traster.sample_grid(64, 10, torch.device("cpu"))
     assert traster.sample_grid(64, 10, torch.device("cpu")) is grid
     np.testing.assert_array_equal(grid.numpy(), traster.bilinear_sample_positions(64, 10))
+
+
+def test_plain_exact_refuses_unordered_samples():
+    """The plain exact version bounds each face chunk's samples with a
+    sorted search, so it takes ascending sample positions only."""
+    faces = _t(CASES[0][1])
+    s = _t(SAMPLES)
+    with pytest.raises(ValueError, match="ascending"):
+        traster.rasterize_depth(faces, s.flip(0), s)
+    with pytest.raises(ValueError, match="ascending"):
+        traster.rasterize_depth(faces, s, s.flip(0))
