@@ -3,8 +3,9 @@
 
 Phases, each fatal on failure:
   1. versions, device name, power limit;
-  2. build the CUDA rasterizers and sphere kernels from spherehand_torch/csrc
-     with nvcc, one process per source, started together;
+  2. build the CUDA rasterizers, sphere kernels and the hourglass's 2x
+     bilinear upsample from spherehand_torch/csrc with nvcc, one process per
+     source, started together;
   3. each raster kernel against its plain PyTorch version on the card: full
      mesh at B = 8 sampler poses plus the adversarial face sets; the three
      z-tile kernels (read from the projected planes) a second time and on
@@ -173,11 +174,32 @@ Phases, each fatal on failure:
          shards, then again with --no_mv: before and after finite;
      (6) parity_eval of (3)'s .pth over the test shards;
      (7) lite_mesh_e2e --arms lite,full --steps 100;
-     raster_fast_pooled and the fused sphere forward, backward and primal
-     launched by this phase, each sub-step's seconds printed.
+     (8) with the evidence tools' deterministic settings
+         (utils.determinism), selfsup_demo's loop twice from one seed, 2
+         epochs of (4)'s shards at the full widths (20 combined steps): the
+         adapted parameters' hashes and after_mm equal, bit for bit;
+     (9) interactive_viewer.render_views of three poses on the card, the
+         sphere map within 1e-3 mm of the CPU's and the mesh's coverage IoU
+         against the CPU's over 0.99;
+     raster_fast_pooled, the fused sphere forward, backward and primal,
+     min_depth_primal and both upsample kernels launched by this phase,
+     each sub-step's seconds printed;
+ 17. the upsample kernels (csrc/upsample.cu) at the hourglass's shapes,
+     (B, 256, 4, 4) and (B, 256, 8, 8) for B = 48, 75, 128 and 1,024, in
+     float32 and bfloat16: the forward against upsample2x_plain bit for bit;
+     the backward against the plain gather bit for bit, two launches bit for
+     bit, and against autograd through the plain forward in float32 within
+     1e-6 of its largest |grad| (bfloat16: within one rounding, 2^-8 of each
+     element, + 1e-6 of the largest); CUDA-event medians of 20 calls of each
+     kernel beside F.interpolate's forward and backward (the library
+     yardstick; the port never calls it), the plain versions and the
+     bound; launches a predict at B = 128, a synthetic and a combined step;
+     predict at B = 128 and the three steps re-timed as phase 9 does.
 
 The last three lines of standard output are the kernels JSON line, the card's
-name and power limit, and the result line. Exits non-zero without a GPU.
+name and power limit, and the result line. Exits non-zero without a GPU. The
+process sets CUBLAS_WORKSPACE_CONFIG=:4096:8 before CUDA starts, so that
+phase 16 can switch to deterministic algorithms.
 
 Usage: python3 chip_smoke.py [--seed 0]
 (``--rank_report DIR -- <CLI arguments>`` is phase 14(b)'s rank mode,
@@ -347,7 +369,26 @@ P16_TRAIN, P16_TEST = 256, 64
 P16_SELF_CHECK_MM = 0.5
 P16_LITE_STEPS = 100
 P16_KERNELS = ("raster_fast_pooled", "sphere_fused_fwd", "sphere_fused_bwd",
-               "sphere_fused_primal")
+               "sphere_fused_primal", "min_depth_primal", "upsample2x_fwd", "upsample2x_bwd")
+P16_REPEAT_EPOCHS = 2  # 2 x 256 / 25 = 20 combined steps
+P16_VIEWER_SPHERE_MM = 1e-3
+P16_VIEWER_IOU = 0.99
+# Phase 17: the upsample kernels at the hourglass's shapes: (B, 256, 4, 4)
+# and (B, 256, 8, 8) (HourglassNet runs at 16 x 16 after its stem), for the
+# synthetic step's 48, the eval's 25 x 3, serving's 128 and the bench's
+# 1,024. Backward against autograd through the plain forward: float32
+# within 1e-6 of the largest |grad| (the sums' order differs); bfloat16 one
+# rounding of each element (unit roundoff 2^-8) on top. Operations, counted
+# from csrc/upsample.cu: the forward 9 an output element (6 products, 3
+# sums), the backward 35 an input element (4 rows of 4 products and 3 sums,
+# then 4 and 3); bytes: the input read once, the output written once.
+P17_BATCHES = (48, 75, MAIN_BATCH, 1024)
+P17_SIZES = (4, 8)
+P17_CHANNELS = 256
+P17_BWD_REL = 1e-6
+P17_BF16_ROUNDING = 2.0 ** -8
+UPSAMPLE_OPS = {"fwd": 9, "bwd": 35}
+UPSAMPLE_SOURCE = "spherehand_tpu/models/hourglass.py:86"
 BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "mesh", "full_exact_fps", "lite_fps",
               "lite_exact_fps", "train_combined_steps_per_sec",
               "train_combined_bf16_steps_per_sec", "train_epoch_steps_per_sec",
@@ -1249,27 +1290,31 @@ def bench_phase(smi: str) -> None:
         f"phase {time.perf_counter() - t0:.2f} s")
 
 
-def evidence_phase(params, crops_mm, joints, dev, seed: int, smi: str) -> None:
+def evidence_phase(model, params, crops_mm, joints, dev, seed: int, smi: str) -> None:
     """Phase 16: the evidence path (``spherehand_torch.tools``) at the full
     widths, short; ``crops_mm`` and ``joints`` are phase 4's fast crops and
-    its estimator's joints."""
+    its estimator's joints, ``model`` the card's hand model."""
     import shutil
     import tempfile
 
     from spherehand_torch import convert
     from spherehand_torch.data.pseudo_real import generate_pseudo_nyu
+    from spherehand_torch.data.sampler import sample_poses
     from spherehand_torch.hand.assets import load_hand_model
     from spherehand_torch.infer import PoseEstimator
     from spherehand_torch.models.estimator import make_network
+    from spherehand_torch.ops import upsample
     from spherehand_torch.render import raster_cuda, sphere_cuda
     from spherehand_torch.tools import (
         eval_synthetic,
         import_torch_checkpoint,
+        interactive_viewer,
         lite_mesh_e2e,
         parity_eval,
         selfsup_demo,
         train_synthetic_full,
     )
+    from spherehand_torch.utils import determinism
 
     t_phase = time.perf_counter()
     secs = {}
@@ -1277,6 +1322,7 @@ def evidence_phase(params, crops_mm, joints, dev, seed: int, smi: str) -> None:
     torch.cuda.synchronize()
     raster_cuda.reset_launch_counts()
     sphere_cuda.reset_launch_counts()
+    upsample.reset_launch_counts()
     try:
         # (1) synthetic pretraining, 200 steps
         t0 = time.perf_counter()
@@ -1366,16 +1412,169 @@ def evidence_phase(params, crops_mm, joints, dev, seed: int, smi: str) -> None:
         log(f"[16] (7) lite_mesh_e2e {P16_LITE_STEPS} steps: {json.dumps(arms)}")
         if not all(np.isfinite(arms[a]["heldout_mm"]) for a in ("lite", "full")):
             fail(f"[16] lite_mesh_e2e: {arms}")
+
+        # (8) two deterministic runs of one seed, bit for bit
+        t0 = time.perf_counter()
+        saved = determinism.enable()
+        try:
+            repeats = [selfsup_demo.run(out=out, samples=P16_TRAIN, test=P16_TEST,
+                                        epochs=P16_REPEAT_EPOCHS, seed=seed, device=dev,
+                                        artifact=os.path.join(tmp, f"repeat{i}.json"))
+                       for i in range(2)]
+        finally:
+            determinism.restore(saved)
+        secs["determinism_repeat"] = time.perf_counter() - t0
+        keys = ("steps", "after_mm", "after_raw_mm", "params_sha256")
+        log(f"[16] (8) deterministic repeat of {repeats[0]['steps']} adaptation steps: "
+            + json.dumps([{k: r[k] for k in keys} for r in repeats]))
+        if not (repeats[0]["steps"] == P16_REPEAT_EPOCHS * (P16_TRAIN // 25)
+                and all(repeats[0][k] == repeats[1][k] for k in keys)):
+            fail(f"[16] the deterministic repeat differs: {repeats}")
+
+        # (9) the viewer's renders on the card against the CPU's
+        t0 = time.perf_counter()
+        poses = np.concatenate([np.zeros((1, 26), np.float32), sample_poses(
+            torch.Generator().manual_seed(seed + 30), 2).numpy()])
+        views = [[v.cpu() for v in interactive_viewer.render_views(m, poses)]
+                 for m in (model, load_hand_model(device="cpu"))]
+        sphere_gap = float((views[0][0] - views[1][0]).abs().max())
+        fg_card, fg_cpu = views[0][1] < 99.9, views[1][1] < 99.9
+        iou = float((fg_card & fg_cpu).sum() / max(int((fg_card | fg_cpu).sum()), 1))
+        secs["interactive_viewer"] = time.perf_counter() - t0
+        log(f"[16] (9) interactive_viewer.render_views of 3 poses: sphere map {sphere_gap:.3g} mm "
+            f"from the CPU's, mesh coverage IoU {iou:.4f}")
+        if not (sphere_gap <= P16_VIEWER_SPHERE_MM and iou > P16_VIEWER_IOU):
+            fail(f"[16] viewer renders: sphere {sphere_gap} mm, IoU {iou}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.synchronize()
-    launches = {k: v for k, v in {**raster_cuda.LAUNCHES, **sphere_cuda.LAUNCHES}.items() if v}
+    launches = {k: v for k, v in {**raster_cuda.LAUNCHES, **sphere_cuda.LAUNCHES,
+                                  **upsample.LAUNCHES}.items() if v}
     missing = [k for k in P16_KERNELS if not launches.get(k)]
     if missing:
         fail(f"[16] kernels not launched by the evidence path: {missing} ({launches})")
     log(f"[16] seconds by sub-step: {json.dumps({k: round(v, 2) for k, v in secs.items()})}")
     log(f"[16] launches (counted from 0): {json.dumps(launches)} | {smi}; "
         f"phase {time.perf_counter() - t_phase:.2f} s")
+
+
+def upsample_phase(fns, state, cfg, real_batch, estimator, dms_mm, dev, seed: int,
+                   smi: str) -> tuple[dict, dict]:
+    """Phase 17: the upsample kernels against their plain versions at the
+    hourglass's shapes, timed beside F.interpolate (the library yardstick)
+    and their bounds; launches a predict and a step; predict and the steps
+    re-timed. Returns (times, checks) by shape."""
+    import torch.nn.functional as F
+
+    from spherehand_torch.ops import upsample as up
+    from spherehand_torch.render import contracts
+
+    t_phase = time.perf_counter()
+    checks, times = {}, {}
+    for batch in P17_BATCHES:
+        for hw in P17_SIZES:
+            gen = torch.Generator(device=dev).manual_seed(seed + 40 + batch + hw)
+            shape = (batch, P17_CHANNELS, hw, hw)
+            x32 = torch.randn(shape, generator=gen, device=dev)
+            g32 = torch.randn((batch, P17_CHANNELS, 2 * hw, 2 * hw), generator=gen, device=dev)
+            for dt in (torch.float32, torch.bfloat16):
+                x, g = x32.to(dt), g32.to(dt)
+                fwd, plain = up.launch_fwd(x), up.upsample2x_plain(x)
+                bwd, again, gather = up.launch_bwd(g), up.launch_bwd(g), up.upsample2x_bwd_plain(g)
+                leaf = x.detach().float().clone().requires_grad_(True)
+                up.upsample2x_plain(leaf).backward(g.float())
+                ref = leaf.grad
+                torch.cuda.synchronize()
+                gap = (bwd.float() - ref).abs()
+                limit = P17_BWD_REL * float(ref.abs().max())
+                if dt == torch.bfloat16:
+                    limit = limit + P17_BF16_ROUNDING * ref.abs()
+                key = f"B{batch}_{hw}x{hw}_{str(dt).split('.')[-1]}"
+                checks[key] = {
+                    "fwd_bits": contracts.same_bits(fwd, plain),
+                    "bwd_bits_plain": contracts.same_bits(bwd, gather),
+                    "bwd_bits_again": contracts.same_bits(bwd, again),
+                    "bwd_rel": float(gap.max()) / float(ref.abs().max()),
+                    "bwd_max_abs_err": float(gap.max()),
+                    "fwd_max_abs_err": max_abs_diff(fwd.float(), plain.float()),
+                }
+                ok = checks[key]
+                if not (ok["fwd_bits"] and ok["bwd_bits_plain"] and ok["bwd_bits_again"]
+                        and bool((gap <= limit).all())):
+                    fail(f"[17] upsample kernels at {key}: {ok}")
+            # times in float32, the path's dtype by default
+            x, g = x32, g32
+            lib_in = x.clone().requires_grad_(True)
+            lib_out = F.interpolate(lib_in, scale_factor=2, mode="bilinear", align_corners=False)
+            numel = x.numel()
+            times[f"B{batch}_{hw}x{hw}"] = {
+                "fwd_ms": time_ms(lambda: up.launch_fwd(x), REPS),
+                "bwd_ms": time_ms(lambda: up.launch_bwd(g), REPS),
+                "plain_fwd_ms": time_ms(lambda: up.upsample2x_plain(x), REPS),
+                "plain_bwd_ms": time_ms(lambda: up.upsample2x_bwd_plain(g), REPS),
+                "library_fwd_ms": time_ms(lambda: F.interpolate(
+                    x, scale_factor=2, mode="bilinear", align_corners=False), REPS),
+                "library_bwd_ms": time_ms(lambda: torch.autograd.grad(
+                    lib_out, lib_in, g, retain_graph=True), REPS),
+                "fwd_bound": bound(4 * 5 * numel, UPSAMPLE_OPS["fwd"] * 4 * numel),
+                "bwd_bound": bound(4 * 5 * numel, UPSAMPLE_OPS["bwd"] * numel),
+            }
+    log("[17] upsample kernels against their plain versions: " + json.dumps(checks))
+    log("[17] upsample CUDA-event ms (float32) beside F.interpolate and the bound: "
+        + json.dumps(times))
+
+    # launches of one predict, one synthetic and one combined step
+    gen = torch.Generator(device=dev).manual_seed(seed + 41)
+    per_call = {}
+    calls = {
+        "predict": lambda: estimator.predict(dms_mm),
+        "synt_step": lambda: fns.synt_step(state, cfg.lr, fns.draw(gen, real=False)),
+        "combined_step": lambda: fns.combined_step(state, cfg.lr, fns.draw(gen), real_batch,
+                                                   True),
+    }
+    for name, call in calls.items():
+        torch.cuda.synchronize()
+        up.reset_launch_counts()
+        call()
+        torch.cuda.synchronize()
+        per_call[name] = dict(up.LAUNCHES)
+    step_ms = {
+        "predict_ms": time_ms(lambda: estimator.predict(dms_mm), REPS),
+        "synt_step_ms": time_ms(
+            lambda: fns.synt_step(state, cfg.lr, fns.draw(gen, real=False)), REPS),
+        "combined_step_ms": time_ms(
+            lambda: fns.combined_step(state, cfg.lr, fns.draw(gen), real_batch, True), REPS),
+        "eval_step_ms": time_ms(
+            lambda: fns.eval_step(state, fns.draw(gen, synt=False), real_batch), REPS),
+    }
+    log(f"[17] launches a call: {json.dumps(per_call)}; re-timed (B = {MAIN_BATCH} predict, "
+        f"steps at {cfg.synt_batch} + {cfg.real_batch}x3): {json.dumps(step_ms)} | {smi}; "
+        f"phase {time.perf_counter() - t_phase:.2f} s")
+    for name, counts in per_call.items():
+        if counts["upsample2x_fwd"] < 1 or (name != "predict" and counts["upsample2x_bwd"] < 1):
+            fail(f"[17] the upsample kernels were not launched by {name}: {counts}")
+    return times, checks
+
+
+def upsample_rows(train_launches: dict, times: dict, checks: dict) -> list[dict]:
+    """The kernels-line rows of the two upsample kernels: per network
+    forward at B = 128, both calls' times and bounds summed."""
+    rows = []
+    for kind in ("fwd", "bwd"):
+        keys = [f"B{MAIN_BATCH}_{hw}x{hw}" for hw in P17_SIZES]
+        b_ms = sum(times[k][f"{kind}_bound"][0] for k in keys)
+        err_key = f"{kind}_max_abs_err"
+        rows.append({
+            "name": f"upsample2x_{kind}", "route": "cuda",
+            "source": "spherehand_torch/csrc/upsample.cu", "replaces": UPSAMPLE_SOURCE,
+            "launches": train_launches[f"upsample2x_{kind}"],
+            "max_abs_err": max(checks[f"{k}_float32"][err_key] for k in keys),
+            "ms": sum(times[k][f"{kind}_ms"] for k in keys),
+            "plain_ms": sum(times[k][f"plain_{kind}_ms"] for k in keys),
+            "bound_ms": b_ms, "bound_by": times[keys[0]][f"{kind}_bound"][1],
+            "library_ms": sum(times[k][f"library_{kind}_ms"] for k in keys),
+        })
+    return rows
 
 
 def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
@@ -1480,6 +1679,11 @@ def main() -> int:
     if args.rank_report is not None:
         return engine_rank_child(args.rank_report, args.cli)
     sys.path.insert(0, ROOT)
+    from spherehand_torch.utils import determinism
+
+    # cuBLAS reads this when its first handle is made: phase 16 switches to
+    # the evidence tools' deterministic algorithms later in this process.
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = determinism.CUBLAS_WORKSPACE_CONFIG
     from spherehand_torch import cuda_build
     from spherehand_torch.convert import train_state_from_params
     from spherehand_torch.data.pseudo_real import render_multiview_batch, sphere_inputs
@@ -1493,6 +1697,7 @@ def main() -> int:
     from spherehand_torch.constants import Constants
     from spherehand_torch.losses.multiview import mutual_projection_loss
     from spherehand_torch.models.estimator import forward as estimator_forward
+    from spherehand_torch.ops import upsample
     from spherehand_torch.render import contracts, raster_cuda, sphere_cuda
     from spherehand_torch.render.adversarial import (
         adversarial_cases,
@@ -1517,7 +1722,7 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 2
     t0 = time.perf_counter()
-    built = cuda_build.build_all(["raster", "sphere"])
+    built = cuda_build.build_all(cuda_build.SOURCES)
     log(f"[2] built {[os.path.relpath(p, ROOT) for p, _ in built.values()]} "
         f"in {time.perf_counter() - t0:.2f} s")
     for _, ptxas in built.values():
@@ -1607,6 +1812,7 @@ def main() -> int:
     poses = sample_poses(gen, MAIN_BATCH)
     torch.cuda.synchronize()
     raster_cuda.reset_launch_counts()
+    upsample.reset_launch_counts()
     errors = {}
     crops = {}
     for mode, exact in (("fast", False), ("exact", True)):
@@ -1619,13 +1825,13 @@ def main() -> int:
         errors[mode] = float(np.linalg.norm(joints - gt, axis=-1).mean())
         crops[mode] = (synt.dms * 100.0, joints)
     torch.cuda.synchronize()
-    launches = dict(raster_cuda.LAUNCHES)
+    launches = {**raster_cuda.LAUNCHES, **upsample.LAUNCHES}
     log(f"[4] B={MAIN_BATCH} mean joint error fast {errors['fast']:.3f} mm, exact "
         f"{errors['exact']:.3f} mm; launches {launches}")
     for mode, err in errors.items():
         if not err < 25.0:
             fail(f"{mode} mean joint error {err} mm >= 25")
-    for name in SERVING_KERNELS:
+    for name in SERVING_KERNELS + ("upsample2x_fwd",):
         if launches[name] < 1:
             fail(f"kernel {name} was not launched on the main path")
     cpu_est = PoseEstimator(params, num_stacks=1, denoise=True, precision="highest",
@@ -1721,6 +1927,7 @@ def main() -> int:
     torch.cuda.synchronize()
     raster_cuda.reset_launch_counts()
     sphere_cuda.reset_launch_counts()
+    upsample.reset_launch_counts()
     t0 = time.perf_counter()
     train_real = render_multiview_batch(model, gen, cfg.real_batch)
     real_batch = RealBatch(*train_real[:4])
@@ -1735,7 +1942,7 @@ def main() -> int:
     train_metrics.append(("eval", eval_metrics))
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    train_launches = {**raster_cuda.LAUNCHES, **sphere_cuda.LAUNCHES}
+    train_launches = {**raster_cuda.LAUNCHES, **sphere_cuda.LAUNCHES, **upsample.LAUNCHES}
     for name, m in train_metrics:
         vals = {k: float(v) for k, v in m.items()}
         log(f"[7] {name}: {json.dumps(vals)}")
@@ -1745,7 +1952,7 @@ def main() -> int:
     log(f"    {train_s:.2f} s; parameters moved {moved}/{len(before)}; launches {train_launches}")
     if moved != len(before) or tuple(denoised.shape) != (cfg.real_batch, 41, 3):
         fail(f"training moved {moved}/{len(before)} parameters, eval shape {tuple(denoised.shape)}")
-    for name in SERVING_KERNELS + FUSED_SPHERE_KERNELS:
+    for name in SERVING_KERNELS + FUSED_SPHERE_KERNELS + tuple(upsample.LAUNCHES):
         if train_launches[name] < 1:
             fail(f"kernel {name} was not launched on the training path")
 
@@ -1987,7 +2194,12 @@ def main() -> int:
     bench_phase(smi)
 
     # --------------------------------------------------------------- 16
-    evidence_phase(params, *crops["fast"], dev, args.seed, smi)
+    evidence_phase(model, params, *crops["fast"], dev, args.seed, smi)
+
+    # --------------------------------------------------------------- 17
+    up_times, up_checks = upsample_phase(fns, state, cfg, real_batch, estimator, dms_fast, dev,
+                                         args.seed, smi)
+    kernel_rows += upsample_rows(train_launches, up_times, up_checks)
 
     print(json.dumps({"kernels": kernel_rows}))
     print(smi)

@@ -4,7 +4,8 @@ Each ``csrc/*.cu`` file is compiled on its own with nvcc into
 ``spherehand_torch/build/`` at first use, then loaded with ``ctypes``. The
 library's file name carries a hash of the source and the flags, so an
 unchanged source is built once per checkout. :func:`build_all` starts one
-nvcc per source at the same time.
+nvcc per source at the same time; :func:`launch` calls a library's C entry
+point on PyTorch's current stream.
 """
 from __future__ import annotations
 
@@ -16,11 +17,12 @@ import subprocess
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
+SOURCES = ("raster", "sphere", "upsample")  # csrc/<name>.cu
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    # No FMA contraction: span bounds (ceil/trunc), depth bits and sphere
-    # argmins must round like the plain PyTorch versions, one operation at
-    # a time.
+    # No FMA contraction: span bounds (ceil/trunc), depth bits, sphere
+    # argmins and the upsample's sums must round like the plain PyTorch
+    # versions, one operation at a time.
     "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
@@ -78,3 +80,15 @@ def build_all(names) -> dict[str, tuple[str, str]]:
 def build(name: str) -> tuple[str, str]:
     """Compile one source (see :func:`build_all`)."""
     return build_all([name])[name]
+
+
+def launch(fn, device, *args) -> int:
+    """Call ``fn(*args, stream)`` on ``device``'s current stream, with that
+    device current; returns the entry point's error code."""
+    import torch
+
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index is None or device.index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(device):
+        return fn(*args, stream)

@@ -187,7 +187,7 @@ class Doctor:
     def kernels(self) -> str:
         from spherehand_torch import cuda_build
 
-        built = cuda_build.build_all(["raster", "sphere"])
+        built = cuda_build.build_all(cuda_build.SOURCES)
         return ", ".join(os.path.basename(path) for path, _ in built.values())
 
     def run(self) -> int:

@@ -26,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from spherehand_torch.ops.upsample import upsample2x
+
 
 class _GroupNorm(nn.GroupNorm):
     """GroupNorm in float32 whatever its input's dtype (flax computes the
@@ -78,8 +80,10 @@ def _max_pool2(x: torch.Tensor) -> torch.Tensor:
 
 
 def _upsample2_bilinear(x: torch.Tensor) -> torch.Tensor:
-    """Bilinear x2 with half-pixel centres (== jax.image.resize bilinear)."""
-    return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+    """Bilinear x2 with half-pixel centres (== jax.image.resize bilinear):
+    the port's kernels on the card, whose backward gathers without atomics
+    (``ops/upsample.py``)."""
+    return upsample2x(x)
 
 
 class Hourglass(nn.Module):

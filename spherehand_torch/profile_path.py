@@ -43,9 +43,17 @@ Then the single-card switches, each beside its baseline in turns (full,
 lite, lite, full; f32, bf16, resample, resample, bf16, f32): the lite mesh's
 ``render_depth_64`` fast at B = 128 and ``synt_step``, and ``combined_step``
 under ``bf16`` and ``depth_resample`` 3, from the shipped weights; and
-``combined_term_diag`` once.
+``combined_term_diag`` once. ``--sections upsample``: the upsample
+kernels alone (``ops/upsample.py``) at the hourglass's two shapes at
+B = 128, beside ``F.interpolate``'s forward and backward on the same
+tensors (the library yardstick). Last (``--sections determinism``),
+``PoseEstimator.predict`` at B = 128 and the three train steps with the
+evidence tools' deterministic settings (``utils.determinism``) off and on,
+in turns (off, on, on, off); the process sets the cuBLAS workspace that
+those settings need before CUDA starts.
 
-Usage: python -m spherehand_torch.profile_path [--sections render train engine switches]
+Usage: python -m spherehand_torch.profile_path
+       [--sections render train engine switches upsample determinism]
 
 Needs a CUDA device. Exits non-zero without one, or when the profiler
 records no device activity for a piece in ``TRACE_ATTEMPTS`` traces.
@@ -71,6 +79,7 @@ ENGINE_SAMPLES = 100
 # device_data off and on, and the same step on one batch already on the
 # card ("memory", no feed)
 ENGINE_TURNS = ("off", "on", "memory", "memory", "on", "off")
+DETERMINISM_TURNS = ("off", "on", "on", "off")
 # Prefixes of the runtime calls that each put one activity on the device.
 DEVICE_WORK_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cuMemcpy", "cudaMemset", "cuMemset")
 STREAM_SYNC_CALLS = ("cudaStreamSynchronize", "cuStreamSynchronize")
@@ -168,10 +177,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_path: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
-    sections = ("render", "train", "engine", "switches")
+    sections = ("render", "train", "engine", "switches", "upsample", "determinism")
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sections", nargs="+", choices=sections, default=list(sections))
     args = ap.parse_args()
+    if "determinism" in args.sections:
+        from spherehand_torch.utils import determinism
+
+        # cuBLAS reads it when its first handle is made
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = determinism.CUBLAS_WORKSPACE_CONFIG
 
     from spherehand_torch.hand.assets import load_hand_model
     from spherehand_torch.infer import PoseEstimator, load_params_npz
@@ -196,6 +210,10 @@ def main() -> int:
         _profile_engine(model)
     if "switches" in args.sections:
         _profile_switches(model)
+    if "upsample" in args.sections:
+        _profile_upsample(dev)
+    if "determinism" in args.sections:
+        _profile_determinism(model, estimator)
     print(smi)
     return 0
 
@@ -402,5 +420,70 @@ def _profile_switches(model) -> None:
     print(json.dumps(row), flush=True)
 
 
+def _profile_upsample(dev) -> None:
+    """The upsample kernels alone at B = 128, (128, 256, 4, 4) and
+    (128, 256, 8, 8), and F.interpolate's forward and backward on the same
+    tensors."""
+    import torch.nn.functional as F
+
+    from spherehand_torch.ops import upsample
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for size in (4, 8):
+        x = torch.randn(BATCHES[0], 256, size, size, generator=gen, device=dev)
+        g = torch.randn(BATCHES[0], 256, 2 * size, 2 * size, generator=gen, device=dev)
+        leaf = x.clone().requires_grad_(True)
+        lib_out = F.interpolate(leaf, scale_factor=2, mode="bilinear", align_corners=False)
+        pieces = {
+            "upsample2x_fwd": lambda: upsample.launch_fwd(x),
+            "upsample2x_bwd": lambda: upsample.launch_bwd(g),
+            "interpolate_fwd": lambda: F.interpolate(x, scale_factor=2, mode="bilinear",
+                                                     align_corners=False),
+            "interpolate_bwd": lambda: torch.autograd.grad(lib_out, leaf, g, retain_graph=True),
+        }
+        for name, fn in pieces.items():
+            row = {"piece": name, "batch": f"{BATCHES[0]}x256x{size}x{size}", **profile_piece(fn)}
+            print(json.dumps(row), flush=True)
+
+def _profile_determinism(model, estimator) -> None:
+    """predict at B = 128 and the three steps with the deterministic
+    settings off and on, in turns."""
+    from spherehand_torch.convert import train_state_from_params
+    from spherehand_torch.data.pseudo_real import render_multiview_batch
+    from spherehand_torch.data.sampler import sample_poses
+    from spherehand_torch.data.synthesizer import synthesize
+    from spherehand_torch.infer import load_params_npz
+    from spherehand_torch.train.config import EngineConfig
+    from spherehand_torch.train.steps import RealBatch, build_steps
+    from spherehand_torch.utils import determinism
+
+    dev = model.kp_radius.device
+    cfg = EngineConfig()
+    fns = build_steps(cfg, hand=model)
+    state = train_state_from_params(fns.init_state, load_params_npz(PARAMS))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    batch = RealBatch(*render_multiview_batch(model, gen, cfg.real_batch)[:4])
+    dms_mm = synthesize(model, gen, sample_poses(gen, BATCHES[0])).dms * 100.0
+    pieces = {
+        "predict": (BATCHES[0], lambda: estimator.predict(dms_mm)),
+        "synt_step": (cfg.synt_batch,
+                      lambda: fns.synt_step(state, cfg.lr, fns.draw(gen, real=False))),
+        "combined_step": (f"{cfg.synt_batch}+{cfg.real_batch}x3",
+                          lambda: fns.combined_step(state, cfg.lr, fns.draw(gen), batch, True)),
+        "eval_step": (f"{cfg.real_batch}x3",
+                      lambda: fns.eval_step(state, fns.draw(gen, synt=False), batch)),
+    }
+    for turn in DETERMINISM_TURNS:
+        saved = determinism.enable() if turn == "on" else None
+        try:
+            for name, (size, fn) in pieces.items():
+                row = {"piece": f"{name}_deterministic_{turn}", "batch": size, **profile_piece(fn)}
+                print(json.dumps(row), flush=True)
+        finally:
+            if saved is not None:
+                determinism.restore(saved)
+
+
 if __name__ == "__main__":
     sys.exit(main())
+

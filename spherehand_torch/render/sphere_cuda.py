@@ -387,16 +387,6 @@ def _ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def _launch(fn, device, *args) -> int:
-    """Call ``fn(*args, stream)`` on ``device``'s current stream, with that
-    device current."""
-    stream = torch.cuda.current_stream(device).cuda_stream
-    if device.index is None or device.index == torch.cuda.current_device():
-        return fn(*args, stream)
-    with torch.cuda.device(device):
-        return fn(*args, stream)
-
-
 def _raise_on(rc: int, name: str, lib) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: {lib.shx_sphere_error_string(rc).decode()}")
@@ -420,9 +410,9 @@ def _fields_kernel(fields, centers, target, radii, size, views, residuals):
     res_d = (at[k], at[k + 1]) if residuals and fields & DEPTH else (None, None)
     res_m = (at[3 * k - 2], at[3 * k - 1]) if residuals and fields & DIST else (None, None)
     lib = _library()
-    rc = _launch(lib.shx_sphere_fields, centers.device, centers.data_ptr(), radii.data_ptr(),
-                 _ptr(target if fields & DIST else None), n, num_j, size, views, depth, dist,
-                 *res_d, *res_m, fields, int(residuals))
+    rc = cuda_build.launch(lib.shx_sphere_fields, centers.device, centers.data_ptr(),
+                           radii.data_ptr(), _ptr(target if fields & DIST else None), n, num_j,
+                           size, views, depth, dist, *res_d, *res_m, fields, int(residuals))
     name = f"{LAUNCH_PREFIX[fields]}_{'fwd' if residuals else 'primal'}"
     _raise_on(rc, name, lib)
     LAUNCHES[name] += 1
@@ -439,9 +429,10 @@ def _fields_bwd_kernel(fields, centers, target, views, grads, res):
     res_m = tuple(res[-2:]) if fields & DIST else (None, None)
     out = torch.empty((n, num_j, 3), dtype=torch.float32, device=centers.device)
     lib = _library()
-    rc = _launch(lib.shx_sphere_fields_bwd, centers.device, centers.data_ptr(),
-                 _ptr(target if fields & DIST else None), _ptr(g_depth), _ptr(g_dist),
-                 *map(_ptr, res_d + res_m), n, num_j, size, views, fields, out.data_ptr())
+    rc = cuda_build.launch(lib.shx_sphere_fields_bwd, centers.device, centers.data_ptr(),
+                           _ptr(target if fields & DIST else None), _ptr(g_depth), _ptr(g_dist),
+                           *map(_ptr, res_d + res_m), n, num_j, size, views, fields,
+                           out.data_ptr())
     name = f"{LAUNCH_PREFIX[fields]}_bwd"
     _raise_on(rc, name, lib)
     LAUNCHES[name] += 1

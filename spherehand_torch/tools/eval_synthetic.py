@@ -8,6 +8,8 @@ per-joint errors and the reference's max-error curve
 (dataset/evaluation.py:69-79). Writes ``synthetic_eval.npz`` (errors,
 thresholds, fractions) beside the checkpoint.
 
+The command line runs with deterministic algorithms (``utils.determinism``).
+
 Usage: python -m spherehand_torch.tools.eval_synthetic [checkpoint=runs/synthetic_full/model_final.pt]
        [num_samples=2048] [batch=128] [--device cpu]
 (the checkpoint: the engine's ``.pt`` or a flat params ``.npz``)
@@ -29,6 +31,7 @@ from spherehand_torch.evaluation.metrics import max_error_curve
 from spherehand_torch.hand.assets import HandModel, load_hand_model
 from spherehand_torch.infer import float32_precision, load_params_npz
 from spherehand_torch.models.estimator import forward, make_network
+from spherehand_torch.utils import determinism
 
 HELDOUT_SEED = 777_000
 
@@ -87,6 +90,7 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("batch", nargs="?", type=int, default=128)
     ap.add_argument("--device", default="cuda", help="torch device (cpu: the plain path)")
     args = ap.parse_args(argv)
+    determinism.enable()
     r = evaluate(args.checkpoint, args.num_samples, args.batch, args.device)
     print(f"samples: {r['errors'].shape[0]}  (noisy renders, held-out poses)")
     print(f"mean joint error: {r['mean_mm']:.2f} mm")

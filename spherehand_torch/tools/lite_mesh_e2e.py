@@ -13,9 +13,11 @@ noisy full-mesh renders (``eval_synthetic.heldout_errors``).
 Usage: python -m spherehand_torch.tools.lite_mesh_e2e [--steps N] [--arms lite,full]
        [--artifact PATH] [--seed S] [--device cpu]
 
-The artifact defaults to ``runs/lite_mesh_e2e.json``; a run shorter than
-50k steps refuses to overwrite the committed convergence golden
-``tests/goldens/lite_mesh_e2e.json``.
+The artifact defaults to ``runs/lite_mesh_e2e.json``; the port's
+convergence record is ``tests/goldens/torch_lite_mesh_e2e.json``. No run, of
+any length, writes the JAX record ``tests/goldens/lite_mesh_e2e.json``
+(``tools.refuse_golden``). The process runs with deterministic algorithms
+(``utils.determinism``).
 """
 from __future__ import annotations
 
@@ -27,19 +29,12 @@ import torch
 
 from spherehand_torch.device import resolve_device
 from spherehand_torch.hand.assets import load_hand_model
+from spherehand_torch.tools import GOLDENS, refuse_golden
 from spherehand_torch.tools.eval_synthetic import heldout_errors
 from spherehand_torch.tools.train_synthetic_full import train_synthetic
+from spherehand_torch.utils import determinism
 
-ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-GOLDEN = os.path.join(ROOT, "tests", "goldens", "lite_mesh_e2e.json")
-GOLDEN_MIN_STEPS = 50_000
-
-
-def refuse_golden(artifact: str, num_steps: int) -> None:
-    """Raise ValueError if a run of ``num_steps`` would overwrite the golden."""
-    if os.path.abspath(artifact) == GOLDEN and num_steps < GOLDEN_MIN_STEPS:
-        raise ValueError(f"refusing to overwrite the convergence golden with a {num_steps}-step "
-                         "run; use --artifact elsewhere")
+GOLDEN = os.path.join(GOLDENS, "lite_mesh_e2e.json")  # the JAX record, never written here
 
 
 def run_arms(arms: list[str], num_steps: int, artifact: str, batch: int = 48,
@@ -47,7 +42,7 @@ def run_arms(arms: list[str], num_steps: int, artifact: str, batch: int = 48,
              device: torch.device | str | None = None, seed: int = 0) -> dict:
     """Train (from ``seed``, ``train_synthetic``'s) and evaluate each arm;
     writes and returns {"steps", arm: {"train_secs", "heldout_mm"}}."""
-    refuse_golden(artifact, num_steps)
+    refuse_golden(artifact)
     art = os.path.abspath(artifact)
     dev = resolve_device(device)
     full = load_hand_model(device=dev)
@@ -73,15 +68,17 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--steps", type=int, default=10_000)
     ap.add_argument("--arms", default="lite,full")
     ap.add_argument("--artifact", default=os.path.join("runs", "lite_mesh_e2e.json"),
-                    help="output path; the tests/goldens file only for runs of >= 50k steps")
+                    help="output path (the port's convergence record: "
+                         "tests/goldens/torch_lite_mesh_e2e.json; never a JAX record)")
     ap.add_argument("--seed", type=int, default=0,
                     help="training seed (0: the JAX tool's keys; others: another reading)")
     ap.add_argument("--device", default="cuda", help="torch device (cpu: the plain path)")
     args = ap.parse_args(argv)
     try:
-        refuse_golden(args.artifact, args.steps)
+        refuse_golden(args.artifact)
     except ValueError as exc:
         raise SystemExit(str(exc)) from None
+    determinism.enable()
     run_arms(args.arms.split(","), args.steps, args.artifact, device=args.device,
              seed=args.seed)
     print("wrote", os.path.abspath(args.artifact))

@@ -14,6 +14,8 @@ writes the split unless present, prints the lowest per-sample depths, holds
 the CPU (TF32 off, no resize-crop), then writes the split without them
 under ``<out>_drop<K>`` and runs ``selfsup_demo`` there. One JSON line.
 
+The command line runs with deterministic algorithms (``utils.determinism``).
+
 Usage: python -m spherehand_torch.tools.pole_study [--seed 0] [--drop 6]
        [--out runs/selfsup_demo] [--device cpu]
 """
@@ -36,6 +38,7 @@ from spherehand_torch.infer import float32_precision, load_params_npz
 from spherehand_torch.tools import selfsup_demo
 from spherehand_torch.train.config import EngineConfig
 from spherehand_torch.train.steps import RealBatch, build_steps
+from spherehand_torch.utils import determinism
 
 
 def lowest_depths(split_dir: str) -> np.ndarray:
@@ -85,6 +88,7 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--out", default=os.path.join("runs", "selfsup_demo"))
     ap.add_argument("--device", default="cuda", help="torch device (cpu: the plain path)")
     args = ap.parse_args(argv)
+    determinism.enable()
     dev = resolve_device(args.device)
     data = os.path.join(args.out, "data")
     if not os.path.exists(os.path.join(data, "test", "mv_data_0_shape.pkl")):

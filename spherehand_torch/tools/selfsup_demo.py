@@ -21,7 +21,11 @@ defaults and result keys:
 
 The artifact goes to ``--out`` (``selfsup_demo.json``, or
 ``selfsup_ablation.json`` under ``--no_mv``) unless ``--artifact`` names
-another path.
+another path; never to a JAX record under ``tests/goldens/``
+(``tools.refuse_golden``). The result also holds ``seed`` and
+``params_sha256``, a hash of the adapted network's parameters: with the
+deterministic algorithms :func:`main` switches on (``utils.determinism``),
+two runs of one seed give the same hash.
 
 Usage: python -m spherehand_torch.tools.selfsup_demo [--samples 4096] [--test 512]
        [--epochs 30] [--no_mv] [--artifact PATH] [--device cpu]
@@ -30,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import os
 import time
@@ -47,10 +52,11 @@ from spherehand_torch.data.pseudo_real import (
 )
 from spherehand_torch.device import resolve_device
 from spherehand_torch.infer import load_params_npz
+from spherehand_torch.tools import ROOT, refuse_golden
 from spherehand_torch.train.config import EngineConfig
 from spherehand_torch.train.engine import Engine, step_seed
+from spherehand_torch.utils import determinism
 
-ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 PRETRAINED = os.path.join(ROOT, "assets", "pretrained", "synthetic_params.npz")
 TEST_SEED_OFFSET = 10_000  # the test split's generator seed: seed + this
 SHORT_INIT_LR = 1e-3
@@ -64,6 +70,16 @@ def backend(device: torch.device) -> str:
     return f"{ident['gpu_name']}, {ident['gpu_power_limit']}"
 
 
+def params_sha256(network: torch.nn.Module) -> str:
+    """SHA-256 over the network's parameters and buffers, in state-dict
+    order, as float32 bytes."""
+    digest = hashlib.sha256()
+    for name, t in network.state_dict().items():
+        digest.update(name.encode())
+        digest.update(t.detach().float().cpu().contiguous().numpy().tobytes())
+    return digest.hexdigest()
+
+
 def run(out: str = os.path.join("runs", "selfsup_demo"), samples: int = 4096, test: int = 512,
         epochs: int = 30, lr: float = 3e-5, init: str = "pretrained",
         pretrain_steps: int = 2000, adapt: str = "combined", no_mv: bool = False,
@@ -71,6 +87,8 @@ def run(out: str = os.path.join("runs", "selfsup_demo"), samples: int = 4096, te
         device: torch.device | str | None = None, engine_overrides: dict | None = None) -> dict:
     """The demo; returns the result it writes. ``engine_overrides``:
     ``EngineConfig`` fields to change (e.g. batch sizes for a small run)."""
+    art = artifact or os.path.join(out, "selfsup_ablation.json" if no_mv else "selfsup_demo.json")
+    refuse_golden(art)
     dev = resolve_device(device)
     data_dir = os.path.join(out, "data")
     train_dir, test_dir = os.path.join(data_dir, "train"), os.path.join(data_dir, "test")
@@ -118,6 +136,7 @@ def run(out: str = os.path.join("runs", "selfsup_demo"), samples: int = 4096, te
         "init": init,
         "adapt": adapt,
         "no_mv": no_mv,
+        "seed": seed,
         "steps": int(engine.state.step),
         "train_secs": round(train_secs, 1),
         "before_mm": round(float(before["avg_joint_error"]), 3),
@@ -125,8 +144,8 @@ def run(out: str = os.path.join("runs", "selfsup_demo"), samples: int = 4096, te
         "before_raw_mm": round(float(before["avg_joint_error_raw"]), 3),
         "after_raw_mm": round(float(after["avg_joint_error_raw"]), 3),
         "backend": backend(dev),
+        "params_sha256": params_sha256(engine.state.network),
     }
-    art = artifact or os.path.join(out, "selfsup_ablation.json" if no_mv else "selfsup_demo.json")
     os.makedirs(os.path.dirname(os.path.abspath(art)), exist_ok=True)
     with open(art, "w") as f:
         json.dump(result, f, indent=2)
@@ -152,13 +171,15 @@ def main(argv: list[str] | None = None) -> None:
                     help="combined = reference mixed loop; real = pure self-supervision, "
                          "no synthetic co-training")
     ap.add_argument("--artifact", default=None,
-                    help="result JSON path (default: under --out; pass the tests/goldens "
-                         "path explicitly to refresh a golden)")
+                    help="result JSON path (default: under --out; a port record goes to "
+                         "tests/goldens/torch_*.json, never to a JAX record)")
     ap.add_argument("--no_mv", action="store_true",
                     help="ablation: disable the multi-view self-supervision terms "
                          "(projection + consistency), keeping everything else")
     ap.add_argument("--device", default="cuda", help="torch device (cpu: the plain path)")
-    run(**vars(ap.parse_args(argv)))
+    args = ap.parse_args(argv)
+    determinism.enable()
+    run(**vars(args))
 
 
 if __name__ == "__main__":

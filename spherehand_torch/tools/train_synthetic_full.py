@@ -16,6 +16,8 @@ Writes, under ``out``: ``model_final.pt`` (the engine's checkpoint format,
 params, as ``assets/pretrained/``) and ``history.json`` ({step, loss,
 synt_joint_err_mm, lr} every 1000 steps and at the last).
 
+The command line runs with deterministic algorithms (``utils.determinism``).
+
 Usage: python -m spherehand_torch.tools.train_synthetic_full [steps=75000] [batch=48]
        [out=runs/synthetic_full] [--mesh lite] [--bf16] [--device cpu]
 """
@@ -37,6 +39,7 @@ from spherehand_torch.train.config import EngineConfig
 from spherehand_torch.train.engine import save_state
 from spherehand_torch.train.priors import save_flax_params_npz
 from spherehand_torch.train.steps import TrainState, build_steps
+from spherehand_torch.utils import determinism
 
 LEARNING_RATES = (1e-3, 1e-4, 1e-5)  # StepLR x0.1 at a third and two thirds
 LOG_EVERY = 1000
@@ -104,6 +107,7 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--bf16", action="store_true", help="bfloat16 convolutions")
     ap.add_argument("--device", default="cuda", help="torch device (cpu: the plain path)")
     args = ap.parse_args(argv)
+    determinism.enable()
     dev = resolve_device(args.device)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"device: {name}, {args.steps} steps @ batch {args.batch}, mesh {args.mesh}, "

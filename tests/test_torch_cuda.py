@@ -287,3 +287,24 @@ def test_per_field_ops_launch_their_kernels(cuda):
     faces = torch.as_tensor(CASES[0][1], device=cuda)
     assert raster_cuda.rasterize_fast(s, s, face_vertices=faces).shape == (1, 128, 128)
     assert raster_cuda.LAUNCHES["raster_fast"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("size", [4, 8])
+def test_upsample_kernels_match_plain_and_repeat(cuda, dtype, size):
+    """The hourglass's 2x bilinear at its shapes: the forward bit for bit,
+    the backward bit for bit with the plain gather and across launches; the
+    op launches both kernels."""
+    from spherehand_torch.ops import upsample as up
+
+    gen = torch.Generator(device=cuda).manual_seed(size)
+    x = torch.randn(48, 256, size, size, generator=gen, device=cuda).to(dtype)
+    g = torch.randn(48, 256, 2 * size, 2 * size, generator=gen, device=cuda).to(dtype)
+    assert torch.equal(up.launch_fwd(x), up.upsample2x_plain(x))
+    bwd = up.launch_bwd(g)
+    assert torch.equal(bwd, up.upsample2x_bwd_plain(g)) and torch.equal(bwd, up.launch_bwd(g))
+    up.reset_launch_counts()
+    leaf = x.clone().requires_grad_(True)
+    up.upsample2x(leaf).backward(g)
+    assert torch.equal(leaf.grad, bwd)
+    assert up.LAUNCHES == {"upsample2x_fwd": 1, "upsample2x_bwd": 1}

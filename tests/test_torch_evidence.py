@@ -385,7 +385,8 @@ def test_eval_synthetic_tiny(synthetic_run):
 
 def test_lite_mesh_e2e_tiny_and_its_guard(tmp_path):
     """2 steps an arm at batch 2, 2 held-out hands; the JAX tool's keys;
-    a short run refuses to overwrite the convergence golden."""
+    no run, short or at the golden's 50,000 steps and beyond, writes the
+    JAX record."""
     art = tmp_path / "lite.json"
     result = lite_mesh_e2e.run_arms(["lite", "full"], 2, str(art), batch=2, eval_samples=2,
                                     eval_batch=2, device="cpu")
@@ -395,23 +396,24 @@ def test_lite_mesh_e2e_tiny_and_its_guard(tmp_path):
     for arm in ("lite", "full"):
         assert set(result[arm]) == {"train_secs", "heldout_mm"}
         assert np.isfinite(result[arm]["heldout_mm"])
-    with pytest.raises(ValueError, match="golden"):
-        lite_mesh_e2e.run_arms(["lite"], 10, lite_mesh_e2e.GOLDEN, device="cpu")
-    with pytest.raises(SystemExit, match="golden"):
-        lite_mesh_e2e.main(["--steps", "10", "--artifact", lite_mesh_e2e.GOLDEN])
+    for steps in (10, 50_000, 75_000):
+        with pytest.raises(ValueError, match="golden"):
+            lite_mesh_e2e.run_arms(["lite"], steps, lite_mesh_e2e.GOLDEN, device="cpu")
+        with pytest.raises(SystemExit, match="golden"):
+            lite_mesh_e2e.main(["--steps", str(steps), "--artifact", lite_mesh_e2e.GOLDEN])
 
 
 def test_selfsup_demo_tiny(pseudo_nyu, tmp_path):
     """One combined epoch from the shipped weights on the 8 + 4 shards at a
     small EngineConfig (batches 4 real, 2 synthetic, 2 eval): the result
-    has the JAX artifact's keys, two steps, finite errors; the default
-    artifact goes under --out."""
+    has the JAX artifact's keys (and its seed and parameter hash), two
+    steps, finite errors; the default artifact goes under --out."""
     out, _ = pseudo_nyu
     art = str(tmp_path / "result.json")
     result = selfsup_demo.run(out=out, samples=8, test=4, epochs=1, device="cpu", artifact=art,
                               engine_overrides=TINY_ENGINE)
-    with open(SELFSUP_GOLDEN) as f:
-        assert set(result) == set(json.load(f))
+    with open(SELFSUP_GOLDEN) as f:  # the JAX artifact's keys, and the run's seed and hash
+        assert set(result) == set(json.load(f)) | {"seed", "params_sha256"}
     with open(art) as f:
         assert json.load(f) == result
     assert result["steps"] == 8 // TINY_ENGINE["real_batch"] and result["backend"] == "cpu"
