@@ -194,7 +194,20 @@ Phases, each fatal on failure:
      kernel beside F.interpolate's forward and backward (the library
      yardstick; the port never calls it), the plain versions and the
      bound; launches a predict at B = 128, a synthetic and a combined step;
-     predict at B = 128 and the three steps re-timed as phase 9 does.
+     predict at B = 128 and the three steps re-timed as phase 9 does;
+ 18. the recipe trio (spherehand_torch/tools/reference_recipe,
+     recipe_artifact, divergence_study) under the tools' deterministic
+     settings, small: pseudo-NYU 256 + 64 hands; reference_recipe 2 epochs
+     uninterrupted, and stopped after its first epoch then resumed from its
+     rolling checkpoint: trajectories and parameter hashes equal bit for
+     bit, every eval finite; recipe_artifact over the two runs and over the
+     stopped run's state file (finished false); divergence_study's
+     instrumented stock probe and lr_1e-4, 1 epoch each, a diag and an eval
+     every 5 steps, finite; combined_term_diag on the recipe's first 3
+     samples card against CPU within phase 13d's 5 % (8 + 3 x 3, TF32 off);
+     raster_fast_pooled (the pseudo-NYU writer's fast rule), the fused
+     sphere forward, backward and primal and both upsample kernels launched
+     by this phase, each sub-step's seconds printed.
 
 The last three lines of standard output are the kernels JSON line, the card's
 name and power limit, and the result line. Exits non-zero without a GPU. The
@@ -373,6 +386,21 @@ P16_KERNELS = ("raster_fast_pooled", "sphere_fused_fwd", "sphere_fused_bwd",
 P16_REPEAT_EPOCHS = 2  # 2 x 256 / 25 = 20 combined steps
 P16_VIEWER_SPHERE_MM = 1e-3
 P16_VIEWER_IOU = 0.99
+# Phase 18: the recipe trio at a small size under the tools' deterministic
+# settings: pseudo-NYU 256 + 64 hands, reference_recipe 2 epochs (10
+# combined steps each at 25) uninterrupted and stopped after its first
+# epoch then resumed (equal bit for bit), recipe_artifact over the two runs
+# (and over the stopped one's state file), divergence_study's instrumented
+# probe and lr_1e-4, 1 epoch each (a diag and an eval every 5 steps);
+# combined_term_diag on the first recipe batch, card against CPU within
+# phase 13d's 5 % (at 8 synthetic + 3 x 3 real, TF32 off).
+P18_TRAIN, P18_TEST = 256, 64
+P18_EPOCHS = 2
+P18_DIAG_EVERY = 5
+P18_DIAG_REAL = 3
+P18_KERNELS = ("raster_fast_pooled", "sphere_fused_fwd", "sphere_fused_bwd",
+               "sphere_fused_primal", "upsample2x_fwd", "upsample2x_bwd")
+P18_PROBES = ("stock_instrumented", "lr_1e-4")
 # Phase 17: the upsample kernels at the hourglass's shapes: (B, 256, 4, 4)
 # and (B, 256, 8, 8) (HourglassNet runs at 16 x 16 after its stem), for the
 # synthetic step's 48, the eval's 25 x 3, serving's 128 and the bench's
@@ -1458,6 +1486,147 @@ def evidence_phase(model, params, crops_mm, joints, dev, seed: int, smi: str) ->
         f"phase {time.perf_counter() - t_phase:.2f} s")
 
 
+def recipe_phase(model, params, dev, seed: int, smi: str) -> None:
+    """Phase 18: the recipe trio (``reference_recipe``, ``recipe_artifact``,
+    ``divergence_study``) at a small size under the tools' deterministic
+    settings, and ``combined_term_diag`` on the recipe's data, card against
+    CPU."""
+    import shutil
+    import tempfile
+
+    from spherehand_torch.convert import train_state_from_params
+    from spherehand_torch.data.nyu import NyuDataset
+    from spherehand_torch.data.synthesizer import synthesize_from_draws
+    from spherehand_torch.hand.assets import load_hand_model
+    from spherehand_torch.infer import float32_precision
+    from spherehand_torch.ops import upsample
+    from spherehand_torch.render import raster_cuda, sphere_cuda
+    from spherehand_torch.tools import divergence_study, recipe_artifact, reference_recipe
+    from spherehand_torch.train import engine as engine_mod
+    from spherehand_torch.train.config import EngineConfig
+    from spherehand_torch.train.steps import RealBatch, build_steps
+    from spherehand_torch.utils import determinism
+
+    class Stop(Exception):
+        pass
+
+    t_phase = time.perf_counter()
+    secs = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_recipe_")
+    torch.cuda.synchronize()
+    raster_cuda.reset_launch_counts()
+    sphere_cuda.reset_launch_counts()
+    upsample.reset_launch_counts()
+    saved = determinism.enable()
+    try:
+        # (1) the recipe, uninterrupted and stopped after its first epoch then resumed
+        t0 = time.perf_counter()
+        small = dict(samples=P18_TRAIN, test=P18_TEST, epochs=P18_EPOCHS, seed=seed, device=dev)
+        whole = reference_recipe.run(out=os.path.join(tmp, "whole"), **small)
+        os.makedirs(os.path.join(tmp, "resumed"))
+        os.symlink(os.path.join(tmp, "whole", "data"), os.path.join(tmp, "resumed", "data"))
+        real_epoch = engine_mod.Engine._epoch_combined
+
+        def stop_at_1(self, epoch):
+            if epoch == 1:
+                raise Stop
+            return real_epoch(self, epoch)
+
+        engine_mod.Engine._epoch_combined = stop_at_1
+        try:
+            reference_recipe.run(out=os.path.join(tmp, "resumed"), **small)
+        except Stop:
+            pass
+        finally:
+            engine_mod.Engine._epoch_combined = real_epoch
+        unfinished = recipe_artifact._load_run(os.path.join(tmp, "resumed"))
+        resumed = reference_recipe.run(out=os.path.join(tmp, "resumed"), **small)
+        secs["reference_recipe"] = time.perf_counter() - t0
+        mm = [p[k] for r in (whole, resumed) for p in r["trajectory"]
+              for k in ("avg_joint_error", "avg_joint_error_raw")]
+        same = (whole["trajectory"] == resumed["trajectory"]
+                and whole["params_sha256"] == resumed["params_sha256"])
+        evals = [p["avg_joint_error"] for p in whole["trajectory"]]
+        log(f"[18] (1) reference_recipe {P18_EPOCHS} epochs of {P18_TRAIN} + {P18_TEST}: "
+            f"{whole['steps']} steps, evals {json.dumps(evals)} mm; "
+            f"stopped after epoch 0 ({len(unfinished['trajectory'])} evals, finished "
+            f"{unfinished['finished']}) and resumed: equal bit for bit {same}")
+        if not (np.isfinite(mm).all() and same and whole["steps"] == P18_EPOCHS * (P18_TRAIN // 25)
+                and not unfinished["finished"] and len(unfinished["trajectory"]) == 2):
+            fail(f"[18] reference_recipe: {whole}, resumed {resumed}, unfinished {unfinished}")
+
+        # (2) the record of the two runs
+        art = recipe_artifact.build(os.path.join(tmp, "whole"), os.path.join(tmp, "resumed"))
+        log(f"[18] (2) recipe_artifact: keys {sorted(art)}; finished "
+            f"{[art[k]['finished'] for k in ('stock', 'companion')]}")
+        if not (art["eval_precision"] == "highest" and art["stock"]["finished"]
+                and art["stock"]["trajectory"] == art["companion"]["trajectory"]):
+            fail(f"[18] recipe_artifact: {art}")
+
+        # (3) two divergence probes, one epoch each
+        t0 = time.perf_counter()
+        skip = ",".join(n for n in divergence_study.probe_names() if n not in P18_PROBES)
+        study = divergence_study.run(
+            data=os.path.join(tmp, "whole", "data"), samples=P18_TRAIN, test=P18_TEST, epochs=1,
+            stock_epochs=1, diag_every=P18_DIAG_EVERY, eval_every_steps=P18_DIAG_EVERY,
+            lrs="1e-4", skip=skip, out=os.path.join(tmp, "study"), seed=seed, device=dev,
+            artifact=os.path.join(tmp, "study", "torch_divergence_study.json"))
+        secs["divergence_study"] = time.perf_counter() - t0
+        collapse = study["conclusions"]["collapse"]
+        diag = study["probes"]["stock_instrumented"]["diag"]
+        finite = all(np.isfinite(row["trajectory_mm"]).all() for row in collapse.values())
+        log(f"[18] (3) divergence_study {sorted(collapse)}: "
+            + json.dumps({k: v["trajectory_mm"] for k, v in collapse.items()})
+            + f"; {len(diag)} diag records, mv_projection cos "
+            f"{study['conclusions']['diag_summary']['mv_projection']['cos_total_median']:.3f}")
+        if not (sorted(collapse) == sorted(P18_PROBES) and finite
+                and len(diag) == -(-(P18_TRAIN // 25) // P18_DIAG_EVERY)):
+            fail(f"[18] divergence_study: {study['conclusions']}")
+    finally:
+        determinism.restore(saved)
+
+    # (4) combined_term_diag on the recipe's first batch, card against CPU
+    t0 = time.perf_counter()
+    ds = NyuDataset(os.path.join(tmp, "whole", "data", "train"))
+    host = ds.gather(np.arange(P18_DIAG_REAL))
+    cfg = EngineConfig(synt_batch=8, real_batch=P18_DIAG_REAL)
+    sides = {}
+    draws = build_steps(cfg, hand=load_hand_model(device="cpu")).draw(
+        torch.Generator().manual_seed(seed + 180))
+    gpu_draws = draws.to(dev)
+    synt = synthesize_from_draws(model, gpu_draws.poses, gpu_draws.synthesis)
+    for side, sdev in (("gpu", dev), ("cpu", torch.device("cpu"))):
+        fns = build_steps(cfg, hand=model if side == "gpu" else load_hand_model(device="cpu"))
+        state = train_state_from_params(fns.init_state, params)
+        batch = RealBatch(*(torch.as_tensor(a, device=sdev) for a in host))
+        with float32_precision("highest"):
+            diag = fns.combined_term_diag(state, draws.to(sdev), batch, True,
+                                          synt=type(synt)(*(x.to(sdev) for x in synt)))
+        sides[side] = {k: float(v) for k, v in diag.items()}
+    gaps = {}
+    for key, ref in sides["cpu"].items():
+        if not key.endswith("/cos_total"):
+            got = sides["gpu"][key]
+            gaps[key] = 0.0 if got == ref else abs(got - ref) / max(abs(ref), 1e-30)
+    worst = max(gaps, key=gaps.get)
+    secs["term_diag_card_vs_cpu"] = time.perf_counter() - t0
+    log(f"[18] (4) combined_term_diag on the recipe's first {P18_DIAG_REAL} samples, card against "
+        f"CPU (8 + {P18_DIAG_REAL}x3, TF32 off): largest gap {worst} {gaps[worst]:.4g} (bound "
+        f"{TERM_GPU_CPU_REL})")
+    shutil.rmtree(tmp, ignore_errors=True)
+    if gaps[worst] > TERM_GPU_CPU_REL:
+        fail(f"[18] card against CPU term gap {worst} {gaps[worst]}: {json.dumps(gaps)}")
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in {**raster_cuda.LAUNCHES, **sphere_cuda.LAUNCHES,
+                                  **upsample.LAUNCHES}.items() if v}
+    missing = [k for k in P18_KERNELS if not launches.get(k)]
+    if missing:
+        fail(f"[18] kernels not launched by the recipe trio: {missing} ({launches})")
+    log(f"[18] seconds by sub-step: {json.dumps({k: round(v, 2) for k, v in secs.items()})}")
+    log(f"[18] launches (counted from 0): {json.dumps(launches)} | {smi}; "
+        f"phase {time.perf_counter() - t_phase:.2f} s")
+
+
 def upsample_phase(fns, state, cfg, real_batch, estimator, dms_mm, dev, seed: int,
                    smi: str) -> tuple[dict, dict]:
     """Phase 17: the upsample kernels against their plain versions at the
@@ -2200,6 +2369,9 @@ def main() -> int:
     up_times, up_checks = upsample_phase(fns, state, cfg, real_batch, estimator, dms_fast, dev,
                                          args.seed, smi)
     kernel_rows += upsample_rows(train_launches, up_times, up_checks)
+
+    # --------------------------------------------------------------- 18
+    recipe_phase(model, params, dev, args.seed, smi)
 
     print(json.dumps({"kernels": kernel_rows}))
     print(smi)

@@ -22,11 +22,18 @@ plain path).
   inspect_model            the keypoint table, a 3D scatter, a synthetic-
                            against-NYU overlay
   interactive_viewer       pose sliders over the sphere and triangle renders
+  reference_recipe         the stock recipe (lr 1e-3, 75 epochs) on pseudo-NYU at
+                           reference scale, resumable; its trajectory of evals
+  recipe_artifact          the stock and companion runs -> the port's record
+  divergence_study         what drives the stock recipe's divergence: per-term
+                           gradients, lr probes, term ablations, the is_mv window
 
 The tools that write a run's result (``selfsup_demo``, ``lite_mesh_e2e``,
-``measure_wobble``) switch the process to deterministic algorithms first
+``measure_wobble``, ``reference_recipe``, ``recipe_artifact``,
+``divergence_study``) switch the process to deterministic algorithms first
 (``utils.determinism``), and so do ``train_synthetic_full``,
-``eval_synthetic`` and ``pole_study``. No tool writes a JAX record:
+``eval_synthetic`` and ``pole_study``. The run-level tools print the port's
+kernel launch counters (:func:`launch_counts`) as a JSON line. No tool writes a JAX record:
 :func:`refuse_golden` refuses every file under ``tests/goldens/`` whose
 name does not start with ``torch_``.
 """
@@ -46,3 +53,16 @@ def refuse_golden(path: str) -> None:
             and not os.path.basename(real).startswith("torch_")):
         raise ValueError(f"refusing to write {path}: tests/goldens/ holds the JAX package's "
                          "records; a port artifact is tests/goldens/torch_*.json")
+
+
+def launch_counts() -> dict[str, int]:
+    """The port's kernel launch counters, by kernel."""
+    from spherehand_torch.ops import upsample
+    from spherehand_torch.render import raster_cuda, sphere_cuda
+    return {**raster_cuda.LAUNCHES, **sphere_cuda.LAUNCHES, **upsample.LAUNCHES}
+
+
+def launches_since(before: dict[str, int]) -> dict[str, int]:
+    """The kernels launched since ``before`` (a :func:`launch_counts`), and
+    how often; the counters themselves are left as they are."""
+    return {k: n - before.get(k, 0) for k, n in launch_counts().items() if n != before.get(k, 0)}

@@ -12,6 +12,14 @@ noisy full-mesh renders (``eval_synthetic.heldout_errors``).
 
 Usage: python -m spherehand_torch.tools.lite_mesh_e2e [--steps N] [--arms lite,full]
        [--artifact PATH] [--seed S] [--device cpu]
+       python -m spherehand_torch.tools.lite_mesh_e2e --merge A.json B.json ... --artifact PATH
+
+The arms are independent, so they may train in separate processes sharing
+the card (one ``--arms`` each); ``--merge`` joins their artifacts, which
+must agree on ``steps`` and ``seed``, into one. Besides the JAX tool's keys
+the artifact holds ``seed``, ``backend`` (the card's name and power limit,
+as nvidia-smi gives them) and ``launches`` (the port's kernel launch
+counters over the run), and the run prints the last two as a JSON line.
 
 The artifact defaults to ``runs/lite_mesh_e2e.json``; the port's
 convergence record is ``tests/goldens/torch_lite_mesh_e2e.json``. No run, of
@@ -29,8 +37,9 @@ import torch
 
 from spherehand_torch.device import resolve_device
 from spherehand_torch.hand.assets import load_hand_model
-from spherehand_torch.tools import GOLDENS, refuse_golden
+from spherehand_torch.tools import GOLDENS, launch_counts, launches_since, refuse_golden
 from spherehand_torch.tools.eval_synthetic import heldout_errors
+from spherehand_torch.tools.selfsup_demo import backend
 from spherehand_torch.tools.train_synthetic_full import train_synthetic
 from spherehand_torch.utils import determinism
 
@@ -41,12 +50,13 @@ def run_arms(arms: list[str], num_steps: int, artifact: str, batch: int = 48,
              eval_samples: int = 2048, eval_batch: int = 128,
              device: torch.device | str | None = None, seed: int = 0) -> dict:
     """Train (from ``seed``, ``train_synthetic``'s) and evaluate each arm;
-    writes and returns {"steps", arm: {"train_secs", "heldout_mm"}}."""
+    writes and returns {"steps", "seed", "backend", "launches", arm:
+    {"train_secs", "heldout_mm"}}."""
     refuse_golden(artifact)
-    art = os.path.abspath(artifact)
     dev = resolve_device(device)
     full = load_hand_model(device=dev)
-    result = {"steps": num_steps}
+    before = launch_counts()
+    result = {"steps": num_steps, "seed": seed, "backend": backend(dev)}
     for arm in arms:
         mesh, _, suffix = arm.partition("_")
         run = train_synthetic(num_steps, batch, mesh, bf16=suffix == "bf16", device=dev,
@@ -57,10 +67,41 @@ def run_arms(arms: list[str], num_steps: int, artifact: str, batch: int = 48,
         print(f"[{arm}] {num_steps} steps in {run.seconds:.1f}s; held-out joint error on "
               f"full-mesh renders: {err:.2f} mm", flush=True)
         result[arm] = {"train_secs": round(run.seconds, 1), "heldout_mm": round(err, 3)}
+    result["launches"] = launches_since(before)
+    print(json.dumps({"backend": result["backend"], "launches": result["launches"]}), flush=True)
+    _write(artifact, result)
+    return result
+
+
+def _write(artifact: str, result: dict) -> None:
+    art = os.path.abspath(artifact)
     os.makedirs(os.path.dirname(art), exist_ok=True)
     with open(art, "w") as f:
         json.dump(result, f, indent=1)
-    return result
+
+
+def merge(paths: list[str], artifact: str) -> dict:
+    """Join per-arm artifacts of one run length and seed into ``artifact``;
+    launches are summed, and the backends must agree."""
+    refuse_golden(artifact)
+    parts = []
+    for path in paths:
+        with open(path) as f:
+            parts.append(json.load(f))
+    merged: dict = {"launches": {}}
+    for part in parts:
+        for key in ("steps", "seed", "backend"):
+            if merged.setdefault(key, part[key]) != part[key]:
+                raise ValueError(f"{key} differs across the artifacts: "
+                                 f"{merged[key]} vs {part[key]}")
+        for name, n in part["launches"].items():
+            merged["launches"][name] = merged["launches"].get(name, 0) + n
+        arms = {k: v for k, v in part.items() if k not in ("steps", "seed", "backend", "launches")}
+        if arms.keys() & merged.keys():
+            raise ValueError(f"an arm appears twice: {sorted(arms.keys() & merged.keys())}")
+        merged.update(arms)
+    _write(artifact, merged)
+    return merged
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -73,11 +114,17 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--seed", type=int, default=0,
                     help="training seed (0: the JAX tool's keys; others: another reading)")
     ap.add_argument("--device", default="cuda", help="torch device (cpu: the plain path)")
+    ap.add_argument("--merge", nargs="+", metavar="JSON",
+                    help="join these per-arm artifacts into --artifact, and train nothing")
     args = ap.parse_args(argv)
     try:
         refuse_golden(args.artifact)
     except ValueError as exc:
         raise SystemExit(str(exc)) from None
+    if args.merge:
+        merge(args.merge, args.artifact)
+        print("wrote", os.path.abspath(args.artifact))
+        return
     determinism.enable()
     run_arms(args.arms.split(","), args.steps, args.artifact, device=args.device,
              seed=args.seed)

@@ -17,6 +17,9 @@ TOOLS = {
     "eval_synthetic": ["--device", "cpu"],
     "pole_study": ["--device", "cpu"],
     "measure_wobble": ["--device", "cpu"],
+    "reference_recipe": ["--device", "cpu"],
+    "recipe_artifact": [],
+    "divergence_study": ["--device", "cpu"],
 }
 
 

@@ -403,6 +403,28 @@ def test_lite_mesh_e2e_tiny_and_its_guard(tmp_path):
             lite_mesh_e2e.main(["--steps", str(steps), "--artifact", lite_mesh_e2e.GOLDEN])
 
 
+def test_lite_mesh_e2e_merge_joins_arms_of_separate_runs(tmp_path):
+    """Arms trained in separate runs join into one artifact: the arms side
+    by side, launches summed; runs of another length or seed, or an arm
+    twice, are refused, and so is a JAX record."""
+    parts = [str(tmp_path / f"{arm}.json") for arm in ("lite", "full")]
+    runs = [lite_mesh_e2e.run_arms([arm], 2, path, batch=2, eval_samples=2, eval_batch=2,
+                                   device="cpu") for arm, path in zip(("lite", "full"), parts)]
+    assert all(set(r) == {"steps", "seed", "backend", "launches", arm}
+               for r, arm in zip(runs, ("lite", "full")))
+    merged = lite_mesh_e2e.merge(parts, str(tmp_path / "both.json"))
+    assert merged == {"steps": 2, "seed": 0, "backend": "cpu", "launches": {},
+                      "lite": runs[0]["lite"], "full": runs[1]["full"]}
+    lite_mesh_e2e.run_arms(["lite"], 3, str(tmp_path / "long.json"), batch=2, eval_samples=2,
+                           eval_batch=2, device="cpu")
+    with pytest.raises(ValueError, match="steps differs"):
+        lite_mesh_e2e.merge([parts[0], str(tmp_path / "long.json")], str(tmp_path / "x.json"))
+    with pytest.raises(ValueError, match="twice"):
+        lite_mesh_e2e.merge([parts[0], parts[0]], str(tmp_path / "x.json"))
+    with pytest.raises(ValueError, match="golden"):
+        lite_mesh_e2e.merge(parts, lite_mesh_e2e.GOLDEN)
+
+
 def test_selfsup_demo_tiny(pseudo_nyu, tmp_path):
     """One combined epoch from the shipped weights on the 8 + 4 shards at a
     small EngineConfig (batches 4 real, 2 synthetic, 2 eval): the result
