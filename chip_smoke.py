@@ -190,10 +190,14 @@ Phases, each fatal on failure:
      the backward against the plain gather bit for bit, two launches bit for
      bit, and against autograd through the plain forward in float32 within
      1e-6 of its largest |grad| (bfloat16: within one rounding, 2^-8 of each
-     element, + 1e-6 of the largest); CUDA-event medians of 20 calls of each
-     kernel beside F.interpolate's forward and backward (the library
-     yardstick; the port never calls it), the plain versions and the
-     bound; launches a predict at B = 128, a synthetic and a combined step;
+     element, + 1e-6 of the largest); at the design's edges (one-pixel, odd,
+     non-square and wide planes, 17,000,000 planes past the grid's 65,535
+     blocks, tensors off a 16-byte boundary), both kernels bit for bit with
+     their plain versions and the backward repeated; CUDA-event medians of
+     20 calls of each kernel beside F.interpolate's forward and backward
+     (the library yardstick; the port never calls it), the plain versions
+     and the bound; launches a predict at B = 128, a synthetic and a
+     combined step;
      predict at B = 128 and the three steps re-timed as phase 9 does;
  18. the recipe trio (spherehand_torch/tools/reference_recipe,
      recipe_artifact, divergence_study) under the tools' deterministic
@@ -416,6 +420,15 @@ P17_CHANNELS = 256
 P17_BWD_REL = 1e-6
 P17_BF16_ROUNDING = 2.0 ** -8
 UPSAMPLE_OPS = {"fwd": 9, "bwd": 35}
+# the design's edges (csrc/upsample.cu): one-pixel, odd, non-square and wide
+# planes (a plane past 256 work items takes several blocks), and 17,000,000
+# one-pixel planes: 66,407 blocks' worth, past the grid's 65,535, so blocks
+# loop; each in float32 and bfloat16. "misaligned": the tensors start one
+# element past a 16-byte boundary, which takes the scalar loads and stores.
+P17_EDGE_SHAPES = ((3, 5, 1, 1), (2, 3, 1, 3), (2, 3, 3, 1), (2, 3, 1, 4), (4, 7, 5, 7),
+                   (3, 9, 6, 9), (2, 5, 7, 12), (2, 4, 9, 4), (1, 2, 40, 300), (1, 3, 2, 1000),
+                   (1, 17_000_000, 1, 1))
+P17_MISALIGNED_SHAPE = (2, 3, 4, 8)
 UPSAMPLE_SOURCE = "spherehand_tpu/models/hourglass.py:86"
 BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "mesh", "full_exact_fps", "lite_fps",
               "lite_exact_fps", "train_combined_steps_per_sec",
@@ -1689,6 +1702,9 @@ def upsample_phase(fns, state, cfg, real_batch, estimator, dms_mm, dev, seed: in
                 "bwd_bound": bound(4 * 5 * numel, UPSAMPLE_OPS["bwd"] * numel),
             }
     log("[17] upsample kernels against their plain versions: " + json.dumps(checks))
+    edges = upsample_edges(up, dev, seed)
+    log("[17] upsample kernels at the design's edges, bit for bit with the plain versions and "
+        "the backward repeated: " + json.dumps(edges))
     log("[17] upsample CUDA-event ms (float32) beside F.interpolate and the bound: "
         + json.dumps(times))
 
@@ -1723,6 +1739,47 @@ def upsample_phase(fns, state, cfg, real_batch, estimator, dms_mm, dev, seed: in
         if counts["upsample2x_fwd"] < 1 or (name != "predict" and counts["upsample2x_bwd"] < 1):
             fail(f"[17] the upsample kernels were not launched by {name}: {counts}")
     return times, checks
+
+
+def upsample_edges(up, dev, seed: int) -> dict:
+    """The upsample kernels at P17_EDGE_SHAPES and on misaligned tensors, in
+    float32 and bfloat16: forward and backward bit for bit with their plain
+    versions, two backward launches bit for bit. Fails the run otherwise."""
+    def bits(a, b) -> bool:
+        return a.shape == b.shape and torch.equal(a.contiguous().view(torch.uint8),
+                                                  b.contiguous().view(torch.uint8))
+
+    def misaligned(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    out = {}
+    for shape in P17_EDGE_SHAPES + (P17_MISALIGNED_SHAPE,):
+        n, c, h, w = shape
+        gen = torch.Generator(device=dev).manual_seed(seed + 42 + h * 1000 + w)
+        x32 = torch.randn(shape, generator=gen, device=dev)
+        g32 = torch.randn((n, c, 2 * h, 2 * w), generator=gen, device=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            x, g = x32.to(dt), g32.to(dt)
+            tag = "x".join(map(str, shape)) + "_" + str(dt).split(".")[-1]
+            if shape == P17_MISALIGNED_SHAPE:
+                x, g, tag = misaligned(x), misaligned(g), "misaligned_" + tag
+                if not (x.data_ptr() % 16 and g.data_ptr() % 16):
+                    fail(f"[17] {tag}: the tensors are 16-byte aligned")
+            bwd = up.launch_bwd(g)
+            ok = {"fwd": bits(up.launch_fwd(x), up.upsample2x_plain(x)),
+                  "bwd": bits(bwd, up.upsample2x_bwd_plain(g)),
+                  "bwd_again": bits(bwd, up.launch_bwd(g))}
+            torch.cuda.synchronize()
+            if not all(ok.values()):
+                fail(f"[17] upsample kernels at {tag}: {ok}")
+            out[tag] = all(ok.values())
+            del x, g, bwd
+        del x32, g32
+        torch.cuda.empty_cache()
+    return out
 
 
 def upsample_rows(train_launches: dict, times: dict, checks: dict) -> list[dict]:

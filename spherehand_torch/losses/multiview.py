@@ -21,6 +21,10 @@ rotation-only.
 
 ``fused=`` overrides the choice, so that the two can be held against each
 other on one device; on CUDA both run kernels.
+
+On the CPU the view transforms (:func:`mutual_transforms`,
+:func:`apply_rigid`) round as XLA's do, so the port's projected joints are
+op-by-op JAX's bits; the card keeps the einsums.
 """
 from __future__ import annotations
 
@@ -32,16 +36,66 @@ from spherehand_torch.render.sphere import _fuse_spheres, data_to_model_distance
 from spherehand_torch.render.sphere_cuda import sphere_min_depth, sphere_min_depth_and_d2m
 
 
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 a * b + c rounded once, as a fused multiply-add does.
+
+    The product is exact in float64; the sum is taken there rounded to odd
+    (its last bit set where the float64 sum was inexact, from the exact
+    error of TwoSum), and that rounds to float32 as the exact sum would:
+    float64 carries more than 24 + 2 bits."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    t = s - p
+    err = (p - (s - t)) + (c - t)
+    bits = s.view(torch.int64)
+    odd = (err != 0) & ((bits & 1) == 0) & torch.isfinite(s)
+    away = (err > 0) == (s > 0)  # the exact sum's magnitude lies above |s|
+    return torch.where(odd, (bits + torch.where(away, 1, -1)).view(torch.float64), s).float()
+
+
+def _exact_order(*tensors: torch.Tensor) -> bool:
+    """JAX's CPU bits are reproduced for float32 on the CPU; the card keeps
+    the einsum (its joints come from TF32 convolutions anyway)."""
+    return all(t.device.type == "cpu" and t.dtype == torch.float32 for t in tensors)
+
+
 def mutual_transforms(poses: torch.Tensor, inv_poses: torch.Tensor) -> torch.Tensor:
     """All-pairs view transforms: out[b, i, j] = inv_poses[b, j] @ poses[b, i].
-    poses (B, V, 4, 4) -> (B, V, V, 4, 4)."""
-    return torch.einsum("bjmn,binl->bijml", inv_poses, poses)
+    poses (B, V, 4, 4) -> (B, V, V, 4, 4).
+
+    On the CPU in float32 each entry is XLA's: the four products rounded,
+    then summed pairwise, (p0 + p1) + (p2 + p3), which is what JAX's
+    ``einsum`` gives there, jitted or op by op, at the losses' three views
+    (XLA picks its order by shape: one view gets a chain of fused
+    multiply-adds instead)."""
+    if not _exact_order(poses, inv_poses):
+        return torch.einsum("bjmn,binl->bijml", inv_poses, poses)
+    a = inv_poses[:, None, :, :, :, None]  # (B, 1, Vj, m, n, 1)
+    b = poses[:, :, None, None, :, :]       # (B, Vi, 1, 1, n, l)
+    p = [a[..., n, :] * b[..., n, :] for n in range(4)]
+    return (p[0] + p[1]) + (p[2] + p[3])
 
 
 def apply_rigid(mats: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """(..., 4, 4) rigid transforms applied to (..., N, 3) points: rotation
-    [:3, :3], translation from column [:3, 3]."""
+    [:3, :3], translation from column [:3, 3].
+
+    On the CPU in float32 each coordinate is XLA's at the losses' shapes
+    (three views): a chain of fused multiply-adds over n, fma(x2, r2,
+    fma(x1, r1, x0 r0)), then + t. The gradient is the einsum's (the
+    chain's bit arithmetic has none)."""
     rotated = torch.einsum("...mn,...jn->...jm", mats[..., :3, :3], points)
+    if _exact_order(mats, points):
+        with torch.no_grad():
+            r = mats[..., None, :3, :3]  # (..., 1, m, n)
+            x = points[..., None, :]     # (..., N, 1, n)
+            shape = torch.broadcast_shapes(r.shape[:-1], x.shape[:-1])
+            exact = x[..., 0] * r[..., 0]
+            for n in (1, 2):
+                exact = _fma(x[..., n].expand(shape), r[..., n].expand(shape), exact)
+        # the chain's value (x - +0 keeps a -0) with the einsum's gradient
+        rotated = exact - (rotated.detach() - rotated)
     return rotated + mats[..., None, :3, 3]
 
 

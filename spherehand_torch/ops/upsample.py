@@ -116,12 +116,18 @@ def upsample2x_bwd_plain(g: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------------------ kernels
 
 
+MAX_PLANE = 2**31 - 1  # csrc/upsample.cu: 32-bit offsets inside the larger (2H, 2W) plane
+
+
 def _check(t: torch.Tensor, name: str) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype not in DTYPES or not t.is_contiguous() or t.dim() != 4:
         raise ValueError(f"{name}: expected a contiguous 4-D float32 or bfloat16 tensor, got "
                          f"{t.dtype} {tuple(t.shape)}")
+    if t.shape[-2] * t.shape[-1] * (4 if name == "x" else 1) > MAX_PLANE:
+        raise ValueError(f"{name}: a plane of {tuple(t.shape[-2:])} is past the kernels' "
+                         f"{MAX_PLANE} elements")
 
 
 def _run(name: str, src: torch.Tensor, out_shape: tuple, h: int, w: int) -> torch.Tensor:

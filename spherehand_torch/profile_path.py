@@ -52,8 +52,15 @@ evidence tools' deterministic settings (``utils.determinism``) off and on,
 in turns (off, on, on, off); the process sets the cuBLAS workspace that
 those settings need before CUDA starts.
 
+``--sections transforms``: the fused mutual-projection loss forward and
+backward to the joints at the combined step's 25 x 3 real views, with the
+view transforms (``losses.multiview.mutual_transforms`` and
+``apply_rigid``) as the card runs them (einsum) and in the CPU's exact
+order (XLA's roundings: products summed pairwise, a chain of fused
+multiply-adds), in turns (einsum, exact, exact, einsum).
+
 Usage: python -m spherehand_torch.profile_path
-       [--sections render train engine switches upsample determinism]
+       [--sections render train engine switches upsample transforms determinism]
 
 Needs a CUDA device. Exits non-zero without one, or when the profiler
 records no device activity for a piece in ``TRACE_ATTEMPTS`` traces.
@@ -177,7 +184,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_path: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
-    sections = ("render", "train", "engine", "switches", "upsample", "determinism")
+    sections = ("render", "train", "engine", "switches", "upsample", "transforms",
+                "determinism")
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sections", nargs="+", choices=sections, default=list(sections))
     args = ap.parse_args()
@@ -212,6 +220,8 @@ def main() -> int:
         _profile_switches(model)
     if "upsample" in args.sections:
         _profile_upsample(dev)
+    if "transforms" in args.sections:
+        _profile_transforms(model)
     if "determinism" in args.sections:
         _profile_determinism(model, estimator)
     print(smi)
@@ -444,6 +454,45 @@ def _profile_upsample(dev) -> None:
         for name, fn in pieces.items():
             row = {"piece": name, "batch": f"{BATCHES[0]}x256x{size}x{size}", **profile_piece(fn)}
             print(json.dumps(row), flush=True)
+
+
+def _profile_transforms(model) -> None:
+    """The fused mutual-projection loss, forward and backward to the joints,
+    with the view transforms as einsums and in the exact order, in turns."""
+    from spherehand_torch.constants import Constants
+    from spherehand_torch.convert import train_state_from_params
+    from spherehand_torch.data.pseudo_real import render_multiview_batch
+    from spherehand_torch.infer import load_params_npz
+    from spherehand_torch.losses import multiview
+    from spherehand_torch.models.estimator import forward
+    from spherehand_torch.train.config import EngineConfig
+    from spherehand_torch.train.steps import NUM_VIEWS, RealBatch, build_steps
+
+    cfg = EngineConfig()
+    state = train_state_from_params(build_steps(cfg, hand=model).init_state,
+                                    load_params_npz(PARAMS))
+    gen = torch.Generator(device=model.kp_radius.device).manual_seed(SEED)
+    batch = RealBatch(*render_multiview_batch(model, gen, cfg.real_batch)[:4])
+    with torch.no_grad():
+        joints = forward(state.network,
+                         real_dms=batch.dms * Constants().depth_scale).real_xyz[-1]
+
+    def loss_fwd_bwd():
+        leaf = joints.clone().requires_grad_(True)
+        loss, _ = multiview.mutual_projection_loss(batch.poses, batch.inv_poses, leaf, batch.dms,
+                                                   model.kp_radius, fused=True)
+        loss.backward()
+
+    card_rule = multiview._exact_order
+    for turn in ("einsum", "exact", "exact", "einsum"):
+        multiview._exact_order = card_rule if turn == "einsum" else (lambda *_t: True)
+        try:
+            row = {"piece": f"mutual_projection_fused_{turn}",
+                   "batch": f"{cfg.real_batch}x{NUM_VIEWS}", **profile_piece(loss_fwd_bwd)}
+        finally:
+            multiview._exact_order = card_rule
+        print(json.dumps(row), flush=True)
+
 
 def _profile_determinism(model, estimator) -> None:
     """predict at B = 128 and the three steps with the deterministic

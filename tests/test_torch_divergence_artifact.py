@@ -39,9 +39,12 @@ def test_captured_at_reference_scale_on_the_card():
 
 
 @pytest.mark.xfail(strict=True, reason=(
-    "ROADMAP Queue 3 item 4 (open): on the H100 the collision term leads the stock run's "
-    "update direction (cosine median 0.760, gradient-norm median 3,940 against mutual "
-    "projection's 0.558 and 3,188); the TPU v5e record ranked mutual projection first (0.760)"))
+    "ROADMAP Queue 3 item 4 (closed as the data): on the H100 the collision term leads the "
+    "stock run's update direction (cosine median 0.760, gradient-norm median 3,940 against "
+    "mutual projection's 0.558 and 3,188); the TPU v5e record ranked mutual projection first "
+    "(0.760). On 25 hands of the port's pseudo-NYU writer at the shipped weights, JAX's own "
+    "combined_term_diag ranks collision first too (cosine 0.991 against 0.207, the port 0.994 "
+    "against 0.208; tests/torch_diag_first_record.py)"))
 def test_mv_projection_dominates_the_update_direction():
     d = _load()["diag_summary"]
     terms = [t for t in d if t != "total_grad_norm"]

@@ -73,9 +73,12 @@ def test_bar_b_median_gain_over_3mm(runs):
 
 
 @pytest.mark.xfail(strict=True, reason=(
-    "ROADMAP Queue 3 item 1 (open): the raw joints' median gain over seeds 0-4 is 2.760 mm "
-    "(6.128, 1.033, 12.449, 2.760, 1.861), under bar (b)'s 3.0; the denoised joints' median "
-    "gain is 4.675"))
+    "ROADMAP Queue 3 item 1 (closed, not a fault of the port): the raw joints' median gain over "
+    "seeds 0-4 is 2.760 mm (6.128, 1.033, 12.449, 2.760, 1.861), under bar (b)'s 3.0; the "
+    "denoised joints' median gain is 4.675. The loop's departure from JAX's at step 132 of the "
+    "trajectory test is one silhouette pixel that the networks' 0.0023 mm joint gap flips, the "
+    "port's loss equal to JAX's on the same joints (tests/test_torch_mv_rounding.py); the "
+    "median of five seeds is read as their spread"))
 def test_bar_b_median_raw_gain_over_3mm(runs):
     assert np.median(_gains(runs, False, raw=True)) > 3.0, _gains(runs, False, raw=True)
 

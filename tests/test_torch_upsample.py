@@ -145,3 +145,100 @@ def test_a_failing_build_raises_and_never_falls_back(monkeypatch):
     monkeypatch.setattr(up, "build", no_nvcc)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         up.upsample2x(x)
+
+
+# ------------------------------------------- the kernels' work items, mirrored
+# csrc/upsample.cu cannot run here; its decomposition can. These mirrors do
+# the kernels' arithmetic by their work items (forward: output rows 2k, 2k+1
+# at columns 4q .. 4q+3; backward: input row k at columns 4p .. 4p+3), with
+# their clamps, tap positions and cut edges, and the grid's walk over planes.
+
+EDGE_PLANES = [(1, 1), (1, 2), (2, 1), (1, 3), (3, 1), (2, 2), (4, 4), (8, 8), (5, 7), (3, 6),
+               (6, 9), (2, 12), (7, 13), (9, 4), (40, 300)]
+
+
+def _fwd_by_items(x: torch.Tensor) -> torch.Tensor:
+    """(P, h, w) float32 -> (P, 2h, 2w) as ``upsample2x_fwd``'s work items."""
+    p, h, w = x.shape
+    qw = (w + 1) // 2
+    k, q = torch.arange(h)[:, None], torch.arange(qw)[None, :]
+    rows = [(k - 1).clamp(min=0), k, (k + 1).clamp(max=h - 1)]
+    cols = [(2 * q - 1 + t).clamp(0, w - 1) for t in range(4)]
+    a = [[x[:, r.expand(h, qw), c.expand(h, qw)] for c in cols] for r in rows]
+    even = [0.25 * a[0][t] + 0.75 * a[1][t] for t in range(4)]
+    odd = [0.75 * a[1][t] + 0.25 * a[2][t] for t in range(4)]
+    y = torch.empty(p, 2 * h, 4 * qw)
+    for parity, v in ((0, even), (1, odd)):
+        outs = [0.25 * v[0] + 0.75 * v[1], 0.75 * v[1] + 0.25 * v[2],
+                0.25 * v[1] + 0.75 * v[2], 0.75 * v[2] + 0.25 * v[3]]
+        for s in range(4):
+            y[:, parity::2, s::4] = outs[s]
+    return y[:, :, :2 * w]  # a run past 2w is cut (w odd)
+
+
+def _gather4(m, n, v0, v1, v2, v3):
+    w1 = torch.where(m == 0, 1.0, 0.75)
+    w2 = torch.where(m == n - 1, 1.0, 0.75)
+    return ((0.25 * v0 + w1 * v1) + w2 * v2) + 0.25 * v3
+
+
+def _bwd_by_items(g: torch.Tensor) -> torch.Tensor:
+    """(P, 2h, 2w) float32 -> (P, h, w) as ``upsample2x_bwd``'s work items."""
+    p, oh, ow = g.shape
+    h, w = oh // 2, ow // 2
+    pw = (w + 3) // 4
+    k, q = torch.arange(h)[:, None].expand(h, pw), torch.arange(pw)[None, :].expand(h, pw)
+    padded = torch.zeros(p, oh + 2, ow + 10)  # row r at r + 1, column c at c + 1
+    padded[:, 1:oh + 1, 1:ow + 1] = g
+    rows = []
+    for t in range(4):
+        r = 2 * k - 1 + t
+        v = [padded[:, r + 1, 8 * q + l] for l in range(10)]  # columns 8p-1 .. 8p+8
+        sums = [_gather4(4 * q + s, w, v[2 * s], v[2 * s + 1], v[2 * s + 2], v[2 * s + 3])
+                for s in range(4)]
+        inside = (r >= 0) & (r < oh)
+        rows.append([torch.where(inside, x, 0.0) for x in sums])
+    gx = torch.empty(p, h, 4 * pw)
+    for s in range(4):
+        gx[:, :, s::4] = _gather4(k, h, *(rows[t][s] for t in range(4)))
+    return gx[:, :, :w]
+
+
+@pytest.mark.parametrize("hw", EDGE_PLANES)
+def test_kernel_work_items_equal_the_plain_versions(hw):
+    """The kernels' decomposition, mirrored, gives the plain versions' bits
+    at odd, non-square, one-pixel and wide planes."""
+    h, w = hw
+    rng = np.random.RandomState(h * 1000 + w)
+    x = torch.from_numpy(rng.standard_normal((3, h, w)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((3, 2 * h, 2 * w)).astype(np.float32))
+    assert torch.equal(_fwd_by_items(x), up.upsample2x_plain(x[None])[0])
+    assert torch.equal(_bwd_by_items(g), up.upsample2x_bwd_plain(g[None])[0])
+
+
+def _walk(planes: int, items: int, threads: int = 256):
+    """``walk_for`` and ``locate``: every (plane, item) a unit's threads own."""
+    owned = []
+    if items <= threads:
+        per_block = threads // items
+        units = -(-planes // per_block)
+        tid = np.arange(per_block * items)
+        for unit in range(units):
+            plane = unit * per_block + tid // items
+            keep = plane < planes
+            owned.append(np.stack([plane[keep], (tid % items)[keep]], 1))
+    else:
+        per_plane = -(-items // threads)
+        for unit in range(planes * per_plane):
+            item = (unit % per_plane) * threads + np.arange(threads)
+            item = item[item < items]
+            owned.append(np.stack([np.full(item.shape, unit // per_plane), item], 1))
+    return np.concatenate(owned)
+
+
+@pytest.mark.parametrize("planes,items", [(1, 1), (300, 1), (7, 8), (33, 32), (5, 3), (4, 256),
+                                          (3, 257), (2, 6000)])
+def test_kernel_walk_owns_each_item_once(planes, items):
+    owned = _walk(planes, items)
+    assert len(owned) == planes * items
+    assert len(np.unique(owned[:, 0] * items + owned[:, 1])) == planes * items
