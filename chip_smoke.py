@@ -202,9 +202,11 @@ Phases, each fatal on failure:
  18. the recipe trio (spherehand_torch/tools/reference_recipe,
      recipe_artifact, divergence_study) under the tools' deterministic
      settings, small: pseudo-NYU 256 + 64 hands; reference_recipe 2 epochs
-     uninterrupted, and stopped after its first epoch then resumed from its
-     rolling checkpoint: trajectories and parameter hashes equal bit for
-     bit, every eval finite; recipe_artifact over the two runs and over the
+     uninterrupted, stopped after its first epoch then resumed from its
+     rolling checkpoint, and stopped between epoch 0's checkpoint and the
+     state that records it then resumed (the lost eval taken from the
+     checkpoint): trajectories, parameter hashes, steps and launches equal
+     bit for bit, every eval finite; recipe_artifact over the two runs and over the
      stopped run's state file (finished false); divergence_study's
      instrumented stock probe and lr_1e-4, 1 epoch each, a diag and an eval
      every 5 steps, finite; combined_term_diag on the recipe's first 3
@@ -392,8 +394,9 @@ P16_VIEWER_SPHERE_MM = 1e-3
 P16_VIEWER_IOU = 0.99
 # Phase 18: the recipe trio at a small size under the tools' deterministic
 # settings: pseudo-NYU 256 + 64 hands, reference_recipe 2 epochs (10
-# combined steps each at 25) uninterrupted and stopped after its first
-# epoch then resumed (equal bit for bit), recipe_artifact over the two runs
+# combined steps each at 25) uninterrupted, stopped after its first epoch
+# and stopped between epoch 0's checkpoint and its state, each resumed
+# (equal bit for bit, launches included), recipe_artifact over the two runs
 # (and over the stopped one's state file), divergence_study's instrumented
 # probe and lr_1e-4, 1 epoch each (a diag and an eval every 5 steps);
 # combined_term_diag on the first recipe batch, card against CPU within
@@ -1554,19 +1557,40 @@ def recipe_phase(model, params, dev, seed: int, smi: str) -> None:
             engine_mod.Engine._epoch_combined = real_epoch
         unfinished = recipe_artifact._load_run(os.path.join(tmp, "resumed"))
         resumed = reference_recipe.run(out=os.path.join(tmp, "resumed"), **small)
+        # stopped once between epoch 0's checkpoint and the state that records it
+        os.makedirs(os.path.join(tmp, "window"))
+        os.symlink(os.path.join(tmp, "whole", "data"), os.path.join(tmp, "window", "data"))
+        real_save = engine_mod.Engine.save_checkpoint
+
+        def stop_after_0(self, which, epoch):
+            real_save(self, which, epoch)
+            if epoch == 0:
+                raise Stop
+
+        engine_mod.Engine.save_checkpoint = stop_after_0
+        try:
+            reference_recipe.run(out=os.path.join(tmp, "window"), **small)
+        except Stop:
+            pass
+        finally:
+            engine_mod.Engine.save_checkpoint = real_save
+        window = reference_recipe.run(out=os.path.join(tmp, "window"), **small)
         secs["reference_recipe"] = time.perf_counter() - t0
-        mm = [p[k] for r in (whole, resumed) for p in r["trajectory"]
+        mm = [p[k] for r in (whole, resumed, window) for p in r["trajectory"]
               for k in ("avg_joint_error", "avg_joint_error_raw")]
-        same = (whole["trajectory"] == resumed["trajectory"]
-                and whole["params_sha256"] == resumed["params_sha256"])
+        same = all(whole[k] == r[k] for r in (resumed, window)
+                   for k in ("trajectory", "params_sha256", "steps", "launches"))
         evals = [p["avg_joint_error"] for p in whole["trajectory"]]
         log(f"[18] (1) reference_recipe {P18_EPOCHS} epochs of {P18_TRAIN} + {P18_TEST}: "
             f"{whole['steps']} steps, evals {json.dumps(evals)} mm; "
             f"stopped after epoch 0 ({len(unfinished['trajectory'])} evals, finished "
-            f"{unfinished['finished']}) and resumed: equal bit for bit {same}")
+            f"{unfinished['finished']}) and resumed, and stopped between epoch 0's checkpoint "
+            f"and its state and resumed: trajectories, parameter hashes and launches "
+            f"{json.dumps(whole['launches'])} equal bit for bit {same}")
         if not (np.isfinite(mm).all() and same and whole["steps"] == P18_EPOCHS * (P18_TRAIN // 25)
                 and not unfinished["finished"] and len(unfinished["trajectory"]) == 2):
-            fail(f"[18] reference_recipe: {whole}, resumed {resumed}, unfinished {unfinished}")
+            fail(f"[18] reference_recipe: {whole}, resumed {resumed}, window {window}, "
+                 f"unfinished {unfinished}")
 
         # (2) the record of the two runs
         art = recipe_artifact.build(os.path.join(tmp, "whole"), os.path.join(tmp, "resumed"))

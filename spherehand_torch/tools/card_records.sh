@@ -16,6 +16,18 @@
 #       the whole study.json beside it); if a standard probe has not logged
 #       iteration 1300 of its first epoch 600 seconds after the probes
 #       start, every probe is stopped.
+#   bash spherehand_torch/tools/card_records.sh recipe GUARD_S [FROM]
+#       the reference recipe pair (reference_recipe), carried over calls:
+#       puts back the runs that FROM holds (what an earlier call of this
+#       mode wrote to its $RECORDS_DIR) under runs/, writes the pseudo-NYU
+#       split (--gen_only, seed 0; each run checks it by its digest), then
+#       runs the stock recipe (--epochs 75, runs/reference_recipe) and the
+#       companion (--lr 3e-5 --epochs 24, runs/companion_lr3e5), one process
+#       each, skipping a run that has finished. GUARD_S seconds after the
+#       start, the runs still going are stopped, wherever they are; a run
+#       that fails stops the other. Then each run's recipe_state.json, its
+#       model_-1.pt (what its resume reads) and its trajectory.json (once it
+#       has finished) go to $RECORDS_DIR/<run>/, the FROM of the next call.
 #
 # Logs and records go to $RECORDS_DIR (default runs/records); data and
 # checkpoints to runs/.
@@ -107,8 +119,66 @@ divergence)
     cp runs/div_all/study.json "$out/divergence_study_full.json"
   fi
   ;;
+recipe)
+  guard_s=${1:?usage: card_records.sh recipe GUARD_S [FROM]}; from=${2:-}
+  names=(reference_recipe companion_lr3e5)
+  flags=("--epochs 75" "--lr 3e-5 --epochs 24")
+  for n in "${names[@]}"; do
+    if [ -n "$from" ] && [ -d "$from/$n" ]; then
+      mkdir -p "runs/$n" && cp -r "$from/$n/." "runs/$n/" && echo "put back runs/$n from $from/$n"
+    fi
+  done
+  python -m spherehand_torch.tools.reference_recipe --gen_only > "$out/data.log" 2>&1 \
+    || { tail -20 "$out/data.log"; exit 1; }
+  tail -2 "$out/data.log"
+  mkdir -p runs/companion_lr3e5 && ln -sfn ../reference_recipe/data runs/companion_lr3e5/data
+  pids=(); running=()
+  for i in "${!names[@]}"; do
+    n=${names[$i]}
+    if [ -f "runs/$n/trajectory.json" ]; then echo "$n has finished"; continue; fi
+    # shellcheck disable=SC2086
+    python -m spherehand_torch.tools.reference_recipe ${flags[$i]} --out "runs/$n" \
+      > "$out/$n.log" 2>&1 &
+    pids+=($!); running+=("$n")
+  done
+  rc=0
+  while :; do
+    alive=0
+    for j in "${!pids[@]}"; do
+      [ -n "${pids[$j]}" ] || continue
+      if kill -0 "${pids[$j]}" 2>/dev/null; then alive=1; continue; fi
+      wait "${pids[$j]}" || { echo "${running[$j]} failed: stopping"; rc=1; }
+      echo "${running[$j]} ended at $(( $(date +%s) - start )) s"; pids[$j]=""
+    done
+    [ $rc = 0 ] && [ $alive = 1 ] || break
+    if [ $(( $(date +%s) - start )) -ge "$guard_s" ]; then
+      echo "guard: stopping the runs still going at $(( $(date +%s) - start )) s"; break
+    fi
+    sleep 5
+  done
+  for p in "${pids[@]}"; do [ -n "$p" ] && kill "$p" 2>/dev/null; done
+  wait
+  for n in "${names[@]}"; do
+    state="runs/$n/recipe_state.json"
+    [ -f "$state" ] || continue
+    run=$(python -c 'import json, sys; print(json.load(open(sys.argv[1]))["run_name"])' "$state")
+    mkdir -p "$out/$n/runs/$run"
+    cp "$state" "$out/$n/"
+    [ -f "runs/$n/trajectory.json" ] && cp "runs/$n/trajectory.json" "$out/$n/"
+    [ -f "runs/$n/runs/$run/model_-1.pt" ] && cp "runs/$n/runs/$run/model_-1.pt" "$out/$n/runs/$run/"
+    echo "== $n"
+    [ -f "$out/$n.log" ] && grep -E "^\[[0-9]+-[0-9]+\]" "$out/$n.log" | tail -1 | cut -c1-400
+    python - "$state" <<'EOF'
+import json, sys
+s = json.load(open(sys.argv[1]))
+print(json.dumps({k: s[k] for k in ("next_epoch", "steps", "train_secs", "pending", "calls")}))
+print(json.dumps(s["trajectory"][-3:]))
+EOF
+  done
+  echo "recipe pair rc=$rc in $(( $(date +%s) - start )) s"
+  ;;
 *)
-  echo "usage: card_records.sh lite|divergence ..." >&2; exit 2;;
+  echo "usage: card_records.sh lite|divergence|recipe ..." >&2; exit 2;;
 esac
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
 exit $rc

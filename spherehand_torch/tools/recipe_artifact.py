@@ -11,8 +11,12 @@ and writes both eval trajectories with the run configs to
 ``tests/goldens/torch_recipe_at_scale.json`` (never to the JAX record
 ``recipe_at_scale.json``: ``tools.refuse_golden``). A run that has not
 finished is taken from its ``recipe_state.json``, marked
-``finished: false``. The port's evals run in float32 with TF32 off, so
-the record says ``eval_precision: "highest"`` and carries no wobble note.
+``finished: false``, with the config, sizes, steps and backend its state
+holds. Each run adds what the JAX record lacks: ``launches`` (the port's
+kernels over the whole run, every call summed), ``data_sha256`` (the
+shards it ran on) and ``calls`` (a line each call that carried it). The
+port's evals run in float32 with TF32 off, so the record says
+``eval_precision: "highest"`` and carries no wobble note.
 Its ``main()`` switches on the deterministic settings first, as every tool
 of the evidence path does.
 
@@ -29,6 +33,7 @@ from spherehand_torch.tools import GOLDENS, refuse_golden
 from spherehand_torch.utils import determinism
 
 OUT = os.path.join(GOLDENS, "torch_recipe_at_scale.json")
+PORT_KEYS = ("launches", "data_sha256", "calls")
 
 
 def _load_run(out_dir: str) -> dict:
@@ -51,11 +56,23 @@ def _load_run(out_dir: str) -> dict:
     return meta
 
 
+def _port_run(out_dir: str) -> dict:
+    """:func:`_load_run`, the JAX record's keys of an unfinished run from its
+    state, and the port's own keys."""
+    run = _load_run(out_dir)
+    with open(os.path.join(out_dir, "recipe_state.json")) as f:
+        state = json.load(f)
+    if not run["finished"]:
+        run.update({k: state[k] for k in ("config", "samples", "test", "steps", "backend")})
+    run.update({k: state[k] for k in PORT_KEYS})
+    return run
+
+
 def build(stock: str, companion: str) -> dict:
     """The record of the two runs under ``stock`` and ``companion``."""
     return {
-        "stock": _load_run(stock),
-        "companion": _load_run(companion),
+        "stock": _port_run(stock),
+        "companion": _port_run(companion),
         "provenance": "spherehand_torch/tools/reference_recipe.py; PERF.md, the recipe pair",
         "eval_precision": "highest",
     }

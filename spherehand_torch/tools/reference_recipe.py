@@ -16,15 +16,22 @@ Each epoch is the engine's combined epoch (``Engine._epoch_combined``);
 the evals run in float32 with TF32 off (``eval_precision="highest"``).
 Writes ``<out>/trajectory.json``: every eval point, the run's config, its
 seconds, ``backend`` (the card's name and power limit, as nvidia-smi gives
-them), ``params_sha256`` of the final network and ``launches`` (the
-port's kernels launched by this call's epochs and evals, and how often),
-which it also prints as a JSON line.
+them), ``params_sha256`` of the final network, ``data_sha256``, ``calls``
+and ``launches`` (the port's kernels launched by the run's epochs and
+evals, and how often), which it also prints as a JSON line.
 
-Resumable: a rolling checkpoint (``model_-1.pt``) and
-``recipe_state.json``; running again with the same ``--out`` resumes from
-the checkpoint at the epoch after the one it holds (the port's resume
+Resumable from a stop anywhere: a rolling checkpoint (``model_-1.pt``)
+and ``recipe_state.json``; running again with the same ``--out`` resumes
+from the checkpoint at the epoch after the one it holds (the port's resume
 rule), and the resumed run equals an uninterrupted one bit for bit (the
 engine's draws and batches are functions of seed, epoch and iteration).
+An epoch's checkpoint is written before its eval and the state after it:
+a run stopped between the two takes the lost eval from the checkpoint
+(the eval is deterministic) and goes on. The state holds the SHA-256 of
+the shards (:func:`data_digest`), and a resume over shards with another
+digest refuses; it also holds the kernel launches summed over every call
+that carried the run, so ``launches`` covers the whole run, and a line a
+call (``calls``: backend, epochs, train seconds).
 The JAX tool's ``--steps_per_call`` (K steps in one ``lax.scan`` dispatch)
 has no counterpart: the port launches one step at a time.
 
@@ -37,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import os
 import time
@@ -77,8 +85,28 @@ def make_data(data_dir: str, samples: int, test: int, seed: int,
           flush=True)
 
 
-def _fresh_state() -> dict:
-    return {"next_epoch": 0, "trajectory": [], "run_name": None, "train_secs": 0.0}
+def data_digest(data_dir: str) -> str:
+    """SHA-256 over the ``train/`` and ``test/`` shards under ``data_dir``:
+    each file's name in its split and its bytes, in sorted order."""
+    digest = hashlib.sha256()
+    for split in ("train", "test"):
+        for name in sorted(os.listdir(os.path.join(data_dir, split))):
+            digest.update(f"{split}/{name}".encode())
+            with open(os.path.join(data_dir, split, name), "rb") as f:
+                for block in iter(lambda: f.read(1 << 24), b""):
+                    digest.update(block)
+    return digest.hexdigest()
+
+
+def _fresh_state(data_sha256: str) -> dict:
+    """``pending``: the epoch whose checkpoint may be on disk before this
+    state records it, with the train seconds and launches through it."""
+    return {"next_epoch": 0, "trajectory": [], "run_name": None, "train_secs": 0.0, "steps": 0,
+            "data_sha256": data_sha256, "launches": {}, "pending": None, "calls": []}
+
+
+def _add(a: dict[str, int], b: dict[str, int]) -> dict[str, int]:
+    return {k: a.get(k, 0) + b.get(k, 0) for k in sorted({*a, *b})}
 
 
 def run(out: str = os.path.join("runs", "reference_recipe"), samples: int = 72_192,
@@ -95,39 +123,66 @@ def run(out: str = os.path.join("runs", "reference_recipe"), samples: int = 72_1
     dev = resolve_device(device)
     data_dir = os.path.join(out, "data")
     make_data(data_dir, samples, test, seed, dev)
+    digest = data_digest(data_dir)
+    print(f"[recipe] data sha256 {digest}", flush=True)
     if gen_only:
         return None
-    before = launch_counts()
 
-    state_file = os.path.join(out, "recipe_state.json")
-    rstate = _fresh_state()
-    if os.path.exists(state_file):
-        with open(state_file) as f:
-            rstate = json.load(f)
     cfg = dataclasses.replace(EngineConfig(
         mode="Train", model_dir=os.path.join(out, "runs"), dataset_dir=data_dir, epoch=epochs,
         num_stacks=1, lr=lr, bf16=bf16, eval_precision="highest", tag=tag, seed=seed,
     ), **(engine_overrides or {}))
+    config = json.loads(json.dumps(dataclasses.asdict(cfg)))
+    state_file = os.path.join(out, "recipe_state.json")
+    rstate = _fresh_state(digest)
+    if os.path.exists(state_file):
+        with open(state_file) as f:
+            rstate = json.load(f)
+        if rstate["data_sha256"] != digest:
+            raise RuntimeError(f"{data_dir} holds shards of sha256 {digest}, but {state_file} "
+                               f"ran on shards of sha256 {rstate['data_sha256']}: not resuming "
+                               "on other data")
+        if rstate["config"] != config:
+            raise RuntimeError(f"{state_file} ran another configuration: {rstate['config']}")
     ckpt = (os.path.join(cfg.model_dir, rstate["run_name"], "model_-1.pt")
             if rstate["run_name"] else None)
     if ckpt and not os.path.exists(ckpt):
         # stopped inside the first --save_every window: no checkpoint, start again
         print(f"[recipe] no checkpoint at {ckpt}; restarting fresh", flush=True)
-        rstate, ckpt = _fresh_state(), None
+        rstate, ckpt = _fresh_state(digest), None
+    lost_eval = None  # the epoch whose checkpoint the state does not record yet
     if ckpt:
         engine = Engine(dataclasses.replace(cfg, restore_from_model=rstate["run_name"],
                                             restore_from_epoch=-1), device=dev)
-        if engine.starting_epoch != rstate["next_epoch"]:
-            raise RuntimeError(f"{ckpt} holds epoch {engine.starting_epoch - 1}, but "
-                               f"{state_file} resumes at {rstate['next_epoch']}")
+        held, pending = engine.starting_epoch - 1, rstate["pending"]
+        if held == rstate["next_epoch"] and pending and pending["epoch"] == held:
+            # stopped between the epoch's checkpoint and the state that records it
+            lost_eval = held
+            rstate["train_secs"], rstate["launches"] = pending["train_secs"], pending["launches"]
+        elif engine.starting_epoch != rstate["next_epoch"]:
+            raise RuntimeError(f"{ckpt} holds epoch {held}, but {state_file} resumes at "
+                               f"{rstate['next_epoch']}")
         print(f"[recipe] resumed at epoch {engine.starting_epoch} from {ckpt}", flush=True)
     else:
         engine = Engine(cfg, device=dev)
         engine.state = train_state_from_params(engine.steps.init_state,
                                                load_params_npz(PRETRAINED))
-        rstate["run_name"] = engine.model_name
+        rstate.update(run_name=engine.model_name, config=config, samples=samples, test=test,
+                      sensor_shift=dict(shift_sigma=SHIFT_PIXEL_SIGMA, z_sigma=Z_SIGMA,
+                                        dropout=DROPOUT))
+    rstate["backend"] = backend(dev)
+    call = {"backend": rstate["backend"], "from_epoch": engine.starting_epoch,
+            "next_epoch": engine.starting_epoch, "train_secs": 0.0}
+    rstate["calls"].append(call)
+    base, before, call_secs = rstate["launches"], launch_counts(), rstate["train_secs"]
+
+    def launches() -> dict[str, int]:
+        """The run's launches: the earlier calls' and this call's since ``before``."""
+        return _add(base, launches_since(before))
 
     def save_state() -> None:
+        call.update(next_epoch=rstate["next_epoch"],
+                    train_secs=round(rstate["train_secs"] - call_secs, 1))
         with open(state_file + ".tmp", "w") as f:
             json.dump(rstate, f, indent=2)
         os.replace(state_file + ".tmp", state_file)
@@ -141,35 +196,55 @@ def run(out: str = os.path.join("runs", "reference_recipe"), samples: int = 72_1
         rstate["trajectory"].append(point)
         print(f"[recipe] {json.dumps(point)}", flush=True)
 
-    if not ckpt:
-        evaluate(-1, "before")
+    def evals_after(epoch: int) -> bool:
+        return (epoch + 1) % eval_every == 0 or epoch == cfg.epoch - 1
+
+    def close_epoch(epoch: int) -> None:
+        """After the epoch's checkpoint: its eval, then the state that resumes after it."""
+        if evals_after(epoch):
+            evaluate(epoch, "train")
+        rstate.update(next_epoch=epoch + 1, steps=int(engine.state.step), pending=None,
+                      launches=launches())
         save_state()
+
+    if lost_eval is not None:
+        print(f"[recipe] taking the eval of epoch {lost_eval} lost between its checkpoint and "
+              "the state", flush=True)
+        close_epoch(lost_eval)
+    elif not ckpt:
+        evaluate(-1, "before")
+        rstate["launches"] = launches()
+        save_state()
+    secs = rstate["train_secs"]
     for epoch in range(engine.starting_epoch, cfg.epoch):
         t0 = time.time()
         engine._epoch_combined(epoch)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        rstate["train_secs"] += time.time() - t0
-        saved = (epoch + 1) % save_every == 0 or epoch == cfg.epoch - 1
-        if saved:
-            engine.save_checkpoint(-1, epoch)
-        if (epoch + 1) % eval_every == 0 or epoch == cfg.epoch - 1:
-            evaluate(epoch, "train")
-        if saved:  # the resume point moves only past epochs a checkpoint holds
-            rstate["next_epoch"] = epoch + 1
+        secs += time.time() - t0
+        if (epoch + 1) % save_every == 0 or epoch == cfg.epoch - 1:
+            # the resume point moves only past epochs a checkpoint holds
+            rstate["pending"] = {"epoch": epoch, "train_secs": secs, "launches": launches()}
             save_state()
+            engine.save_checkpoint(-1, epoch)
+            rstate["train_secs"] = secs
+            close_epoch(epoch)
+        elif evals_after(epoch):
+            evaluate(epoch, "train")
 
     final = {
-        "config": dataclasses.asdict(cfg),
+        "config": config,
         "samples": samples,
         "test": test,
-        "sensor_shift": dict(shift_sigma=SHIFT_PIXEL_SIGMA, z_sigma=Z_SIGMA, dropout=DROPOUT),
+        "sensor_shift": rstate["sensor_shift"],
         "steps": int(engine.state.step),
         "train_secs": round(rstate["train_secs"], 1),
         "trajectory": rstate["trajectory"],
-        "backend": backend(dev),
+        "backend": rstate["backend"],
         "params_sha256": params_sha256(engine.state.network),
-        "launches": launches_since(before),
+        "data_sha256": digest,
+        "calls": rstate["calls"],
+        "launches": rstate["launches"],
     }
     with open(final_path, "w") as f:
         json.dump(final, f, indent=2)

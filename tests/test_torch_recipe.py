@@ -2,11 +2,13 @@
 ``recipe_artifact``, ``divergence_study``) on the CPU: their pure pieces
 against the JAX tools' own on the same records, each tool's ``run()`` at a
 tiny size (finite trajectories with the JAX keys; the recipe resumed equal
-to an uninterrupted run; the study resumed and merged), and no tool writes
-a JAX record."""
+to an uninterrupted run from a stop at each point of an epoch's close,
+launches included, and refusing shards with another digest; the study
+resumed and merged), and no tool writes a JAX record."""
 import importlib.util
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -15,6 +17,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 
+from spherehand_torch.ops import upsample  # noqa: E402
 from spherehand_torch.tools import (  # noqa: E402
     divergence_study,
     recipe_artifact,
@@ -57,30 +60,68 @@ class _Stop(Exception):
     pass
 
 
-@pytest.fixture(scope="module")
-def recipe_runs(tmp_path_factory):
-    """A 2-epoch recipe run, the same run stopped after its first epoch
-    (its state file then), and that run resumed to the end."""
-    root = tmp_path_factory.mktemp("recipe")
-    small = dict(samples=SAMPLES, test=TEST, epochs=2, device="cpu", engine_overrides=TINY)
-    whole = reference_recipe.run(out=str(root / "whole"), **small)
-    os.makedirs(root / "resumed")
-    os.symlink(root / "whole" / "data", root / "resumed" / "data")
-    real_epoch = engine_mod.Engine._epoch_combined
+def _counting(m: pytest.MonkeyPatch) -> None:
+    """Count the plain upsample calls in ``upsample.LAUNCHES``, as the
+    kernels' wrappers count their launches on the card, so that a run on
+    the CPU has launches to sum."""
+    for name, fn in (("upsample2x_fwd", upsample.upsample2x_plain),
+                     ("upsample2x_bwd", upsample.upsample2x_bwd_plain)):
+        def counted(x, _name=name, _fn=fn):
+            upsample.LAUNCHES[_name] += 1
+            return _fn(x)
+        m.setattr(upsample, fn.__name__, counted)
 
-    def stop_at_1(self, epoch):
-        if epoch == 1:
+
+def _stop_at(m: pytest.MonkeyPatch, where: str) -> None:
+    """Make the next recipe run raise ``_Stop`` once, at ``where``: the start
+    of epoch 1, after epoch 0's checkpoint (before its eval and the state
+    that records it), or before epoch 1's checkpoint (after the state that
+    announces it)."""
+    real_epoch, real_save = engine_mod.Engine._epoch_combined, engine_mod.Engine.save_checkpoint
+
+    def epoch_combined(self, epoch):
+        if where == "epoch 1 start" and epoch == 1:
             raise _Stop
         return real_epoch(self, epoch)
 
-    with pytest.MonkeyPatch.context() as m:
-        m.setattr(engine_mod.Engine, "_epoch_combined", stop_at_1)
-        with pytest.raises(_Stop):
-            reference_recipe.run(out=str(root / "resumed"), **small)
-    unfinished = {"port": recipe_artifact._load_run(str(root / "resumed")),
-                  "jax": _jax_tool("recipe_artifact")._load_run(str(root / "resumed"))}
-    resumed = reference_recipe.run(out=str(root / "resumed"), **small)
-    return {"root": root, "whole": whole, "resumed": resumed, "unfinished": unfinished}
+    def save_checkpoint(self, which, epoch):
+        if where == "epoch 1 checkpoint" and epoch == 1:
+            raise _Stop
+        real_save(self, which, epoch)
+        if where == "epoch 0 checkpoint" and epoch == 0:
+            raise _Stop
+
+    m.setattr(engine_mod.Engine, "_epoch_combined", epoch_combined)
+    m.setattr(engine_mod.Engine, "save_checkpoint", save_checkpoint)
+
+
+STOPS = ("epoch 1 start", "epoch 0 checkpoint", "epoch 1 checkpoint")
+
+
+@pytest.fixture(scope="module")
+def recipe_runs(tmp_path_factory):
+    """A 2-epoch recipe run; the same run stopped at each of ``STOPS`` (its
+    state file then, for the first) and resumed to the end; the plain
+    upsample calls counted as launches."""
+    root = tmp_path_factory.mktemp("recipe")
+    small = dict(samples=SAMPLES, test=TEST, epochs=2, device="cpu", engine_overrides=TINY)
+    resumed = {}
+    with pytest.MonkeyPatch.context() as counting:
+        _counting(counting)
+        whole = reference_recipe.run(out=str(root / "whole"), **small)
+        for i, where in enumerate(STOPS):
+            out = root / f"resumed{i}"
+            os.makedirs(out)
+            os.symlink(root / "whole" / "data", out / "data")
+            with pytest.MonkeyPatch.context() as m:
+                _stop_at(m, where)
+                with pytest.raises(_Stop):
+                    reference_recipe.run(out=str(out), **small)
+            if i == 0:
+                unfinished = {"port": recipe_artifact._load_run(str(out)),
+                              "jax": _jax_tool("recipe_artifact")._load_run(str(out))}
+            resumed[where] = reference_recipe.run(out=str(out), **small)
+    return {"root": root, "whole": whole, "stops": resumed, "unfinished": unfinished}
 
 
 @pytest.fixture(scope="module")
@@ -114,7 +155,8 @@ def test_recipe_run_has_the_jax_keys_and_finite_evals(recipe_runs):
     hash and launches), an eval before and after each epoch, finite."""
     whole = recipe_runs["whole"]
     assert set(whole) == {"config", "samples", "test", "sensor_shift", "steps", "train_secs",
-                          "trajectory", "backend", "params_sha256", "launches"}
+                          "trajectory", "backend", "params_sha256", "launches", "data_sha256",
+                          "calls"}
     assert whole["steps"] == 2 * SAMPLES // TINY["real_batch"] and whole["backend"] == "cpu"
     assert [p["epoch"] for p in whole["trajectory"]] == [-1, 0, 1]
     assert [p["label"] for p in whole["trajectory"]] == ["before", "train", "train"]
@@ -126,14 +168,53 @@ def test_recipe_run_has_the_jax_keys_and_finite_evals(recipe_runs):
     assert whole["config"]["eval_precision"] == "highest" and whole["config"]["lr"] == 1e-3
 
 
-def test_recipe_resume_equals_the_uninterrupted_run(recipe_runs):
-    """Stopped after epoch 0 and run again with the same --out: it resumes
-    at epoch 1 from the rolling checkpoint and ends bit for bit where the
-    uninterrupted run ends (trajectory and parameter hash)."""
-    whole, resumed = recipe_runs["whole"], recipe_runs["resumed"]
+@pytest.mark.parametrize("where", STOPS)
+def test_recipe_resume_equals_the_uninterrupted_run(recipe_runs, where):
+    """Stopped once at ``where`` and run again with the same --out: it resumes
+    from the rolling checkpoint (taking the eval lost between epoch 0's
+    checkpoint and its state from the checkpoint) and ends bit for bit where
+    the uninterrupted run ends (trajectory, parameter hash, steps), with the
+    same launches, summed over both calls."""
+    whole, resumed = recipe_runs["whole"], recipe_runs["stops"][where]
     assert resumed["trajectory"] == whole["trajectory"]
     assert resumed["params_sha256"] == whole["params_sha256"]
     assert resumed["steps"] == whole["steps"]
+    assert resumed["launches"] == whole["launches"]
+    assert whole["launches"]["upsample2x_fwd"] > 0 and whole["launches"]["upsample2x_bwd"] > 0
+    assert resumed["data_sha256"] == whole["data_sha256"]
+    assert len(resumed["calls"]) == 2
+
+
+@pytest.fixture(scope="module")
+def changed_run(recipe_runs):
+    """A recipe run stopped at the start of epoch 1, then one byte of its
+    train shard changed."""
+    out = recipe_runs["root"] / "changed"
+    shutil.copytree(recipe_runs["root"] / "whole" / "data", out / "data")
+    with pytest.MonkeyPatch.context() as m:
+        _stop_at(m, "epoch 1 start")
+        with pytest.raises(_Stop):
+            reference_recipe.run(out=str(out), samples=SAMPLES, test=TEST, epochs=2,
+                                 device="cpu", engine_overrides=TINY)
+    state = (out / "recipe_state.json").read_text()
+    with open(out / "data" / "train" / "mv_data_0_dms.bat", "r+b") as f:
+        f.seek(4 * 64 * 64 + 7)
+        byte = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([byte[0] ^ 1]))
+    return {"out": out, "state": state, "old": json.loads(state)["data_sha256"],
+            "new": reference_recipe.data_digest(str(out / "data"))}
+
+
+def test_recipe_resume_refuses_other_shards(changed_run):
+    """A shard changed between two calls: the resume refuses, naming both
+    digests, and the state is left as it was."""
+    out, old, new = changed_run["out"], changed_run["old"], changed_run["new"]
+    assert new != old
+    with pytest.raises(RuntimeError, match=f"{new}.*{old}"):
+        reference_recipe.run(out=str(out), samples=SAMPLES, test=TEST, epochs=2, device="cpu",
+                             engine_overrides=TINY)
+    assert (out / "recipe_state.json").read_text() == changed_run["state"]
 
 
 def test_load_run_equals_the_jax_tools(recipe_runs):
@@ -147,13 +228,16 @@ def test_load_run_equals_the_jax_tools(recipe_runs):
     assert unfinished["port"]["finished"] is False and len(unfinished["port"]["trajectory"]) == 2
 
 
-def test_recipe_artifact_keys(recipe_runs, tmp_path, monkeypatch):
+@pytest.mark.parametrize("stock", ["whole", "changed"])
+def test_recipe_artifact_keys(recipe_runs, changed_run, tmp_path, monkeypatch, stock):
     """The record: the JAX record's keys, with ``eval_precision`` in place
-    of its wobble note; each run's keys as the JAX record's."""
+    of its wobble note; each run's keys as the JAX record's, and the port's
+    launches, data digest and calls, for a finished run and (``changed``,
+    stopped after its first epoch) for one taken from its state."""
     monkeypatch.setattr(determinism, "enable", dict)  # the process's settings stay
     out = tmp_path / "torch_recipe_at_scale.json"
-    recipe_artifact.main(["--stock", str(recipe_runs["root"] / "whole"),
-                          "--companion", str(recipe_runs["root"] / "resumed"), "--out", str(out)])
+    recipe_artifact.main(["--stock", str(recipe_runs["root"] / stock),
+                          "--companion", str(recipe_runs["root"] / "resumed0"), "--out", str(out)])
     with open(out) as f:
         art = json.load(f)
     with open(os.path.join(GOLDENS, "recipe_at_scale.json")) as f:
@@ -161,8 +245,15 @@ def test_recipe_artifact_keys(recipe_runs, tmp_path, monkeypatch):
     assert set(art) == set(jax_art) - {"eval_precision_note"} | {"eval_precision"}
     assert art["eval_precision"] == "highest"
     for run in ("stock", "companion"):
-        assert set(art[run]) == set(jax_art[run])
+        assert set(art[run]) == set(jax_art[run]) | set(recipe_artifact.PORT_KEYS)
         assert set(art[run]["trajectory"][0]) == set(jax_art[run]["trajectory"][0])
+    assert art["stock"]["finished"] == (stock == "whole")
+    assert art["companion"]["launches"] == recipe_runs["whole"]["launches"]
+    if stock == "changed":
+        assert art["stock"]["steps"] == SAMPLES // TINY["real_batch"]
+        assert art["stock"]["config"] == recipe_runs["whole"]["config"] | {
+            "model_dir": art["stock"]["config"]["model_dir"],
+            "dataset_dir": art["stock"]["config"]["dataset_dir"]}
 
 
 def test_divergence_probes_have_the_jax_keys(study):
