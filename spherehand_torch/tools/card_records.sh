@@ -25,9 +25,10 @@
 #       companion (--lr 3e-5 --epochs 24, runs/companion_lr3e5), one process
 #       each, skipping a run that has finished. GUARD_S seconds after the
 #       start, the runs still going are stopped, wherever they are; a run
-#       that fails stops the other. Then each run's recipe_state.json, its
-#       model_-1.pt (what its resume reads) and its trajectory.json (once it
-#       has finished) go to $RECORDS_DIR/<run>/, the FROM of the next call.
+#       that fails stops the other. Then each run's recipe_state.json and,
+#       once it has finished, its trajectory.json go to $RECORDS_DIR/<run>/,
+#       the FROM of the next call, and after them the model_-1.pt of each run
+#       that has not finished (what its resume reads besides the state).
 #
 # Logs and records go to $RECORDS_DIR (default runs/records); data and
 # checkpoints to runs/.
@@ -41,17 +42,23 @@ start=$(date +%s)
 what=${1:-}
 shift || true
 
-# watch SECONDS PID...: wait SECONDS, stopping every PID and returning 1 as
-# soon as one of them has ended with a failure.
+# watch SECONDS PID...: wait SECONDS, or until every PID has ended, saying
+# when each ends; as soon as one of them has ended with a failure, stop them
+# all and return 1.
 watch() {
-  local until=$(( $(date +%s) + $1 )); shift
-  while [ "$(date +%s)" -lt "$until" ]; do
-    sleep 15
+  local until=$(( $(date +%s) + $1 )) pid alive; shift
+  local -A ended=()
+  while :; do
+    alive=0
     for pid in "$@"; do
-      if ! kill -0 "$pid" 2>/dev/null && ! wait "$pid"; then
-        echo "process $pid failed: stopping"; kill "$@" 2>/dev/null; return 1
-      fi
+      [ -n "${ended[$pid]:-}" ] && continue
+      if kill -0 "$pid" 2>/dev/null; then alive=1; continue; fi
+      ended[$pid]=1
+      if ! wait "$pid"; then echo "process $pid failed: stopping"; kill "$@" 2>/dev/null; return 1; fi
+      echo "process $pid ended at $(( $(date +%s) - start )) s"
     done
+    [ $alive = 1 ] && [ "$(date +%s)" -lt "$until" ] || return 0
+    sleep 5
   done
 }
 
@@ -139,33 +146,31 @@ recipe)
     # shellcheck disable=SC2086
     python -m spherehand_torch.tools.reference_recipe ${flags[$i]} --out "runs/$n" \
       > "$out/$n.log" 2>&1 &
-    pids+=($!); running+=("$n")
+    pids+=($!); running+=("$n"); echo "$n runs as process $!"
   done
   rc=0
-  while :; do
-    alive=0
-    for j in "${!pids[@]}"; do
-      [ -n "${pids[$j]}" ] || continue
-      if kill -0 "${pids[$j]}" 2>/dev/null; then alive=1; continue; fi
-      wait "${pids[$j]}" || { echo "${running[$j]} failed: stopping"; rc=1; }
-      echo "${running[$j]} ended at $(( $(date +%s) - start )) s"; pids[$j]=""
-    done
-    [ $rc = 0 ] && [ $alive = 1 ] || break
-    if [ $(( $(date +%s) - start )) -ge "$guard_s" ]; then
-      echo "guard: stopping the runs still going at $(( $(date +%s) - start )) s"; break
+  watch $(( guard_s - ($(date +%s) - start) )) "${pids[@]}" || rc=1
+  for i in "${!pids[@]}"; do
+    if [ $rc = 0 ] && kill -0 "${pids[$i]}" 2>/dev/null; then
+      echo "guard: stopping ${running[$i]} at $(( $(date +%s) - start )) s"; kill "${pids[$i]}"
     fi
-    sleep 5
   done
-  for p in "${pids[@]}"; do [ -n "$p" ] && kill "$p" 2>/dev/null; done
   wait
+  # The small files of both runs before any checkpoint, and a checkpoint only
+  # for a run that has not finished: a finished run's resume reads nothing.
+  for n in "${names[@]}"; do
+    [ -f "runs/$n/recipe_state.json" ] || continue
+    mkdir -p "$out/$n"
+    cp "runs/$n/recipe_state.json" "$out/$n/"
+    [ -f "runs/$n/trajectory.json" ] && cp "runs/$n/trajectory.json" "$out/$n/"
+  done
   for n in "${names[@]}"; do
     state="runs/$n/recipe_state.json"
     [ -f "$state" ] || continue
     run=$(python -c 'import json, sys; print(json.load(open(sys.argv[1]))["run_name"])' "$state")
-    mkdir -p "$out/$n/runs/$run"
-    cp "$state" "$out/$n/"
-    [ -f "runs/$n/trajectory.json" ] && cp "runs/$n/trajectory.json" "$out/$n/"
-    [ -f "runs/$n/runs/$run/model_-1.pt" ] && cp "runs/$n/runs/$run/model_-1.pt" "$out/$n/runs/$run/"
+    if [ ! -f "runs/$n/trajectory.json" ] && [ -f "runs/$n/runs/$run/model_-1.pt" ]; then
+      mkdir -p "$out/$n/runs/$run" && cp "runs/$n/runs/$run/model_-1.pt" "$out/$n/runs/$run/"
+    fi
     echo "== $n"
     [ -f "$out/$n.log" ] && grep -E "^\[[0-9]+-[0-9]+\]" "$out/$n.log" | tail -1 | cut -c1-400
     python - "$state" <<'EOF'

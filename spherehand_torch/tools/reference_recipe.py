@@ -123,10 +123,10 @@ def run(out: str = os.path.join("runs", "reference_recipe"), samples: int = 72_1
     dev = resolve_device(device)
     data_dir = os.path.join(out, "data")
     make_data(data_dir, samples, test, seed, dev)
-    digest = data_digest(data_dir)
-    print(f"[recipe] data sha256 {digest}", flush=True)
     if gen_only:
         return None
+    digest = data_digest(data_dir)  # stored at a run's first call, compared on resume
+    print(f"[recipe] data sha256 {digest}", flush=True)
 
     cfg = dataclasses.replace(EngineConfig(
         mode="Train", model_dir=os.path.join(out, "runs"), dataset_dir=data_dir, epoch=epochs,
