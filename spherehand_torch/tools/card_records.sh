@@ -29,6 +29,18 @@
 #       once it has finished, its trajectory.json go to $RECORDS_DIR/<run>/,
 #       the FROM of the next call, and after them the model_-1.pt of each run
 #       that has not finished (what its resume reads besides the state).
+#   bash spherehand_torch/tools/card_records.sh companion [GUARD_S]
+#       the arms of tests/torch_companion_witness.py that ask where the
+#       companion leaves the JAX record: writes the seed-0 split once
+#       (reference_recipe --gen_only into runs/companion_arms/seed0), then
+#       runs the five reference-scale arms (card_recipe_steps, _bf16,
+#       _seed1, _drawseed1, _cutbatch) and the cut-size card_cut_cardhands,
+#       one process each; an arm that fails leaves the others going. GUARD_S
+#       (2100) seconds after the start, the arms still going are stopped
+#       wherever they are (each arm's JSON holds every eval it took). Each
+#       arm's runs/companion_arms/<arm>.json and the card-written cut hands
+#       (card_data.tar.gz) go to $RECORDS_DIR, and the witness's --report
+#       reads them there.
 #
 # Logs and records go to $RECORDS_DIR (default runs/records); data and
 # checkpoints to runs/.
@@ -44,9 +56,10 @@ shift || true
 
 # watch SECONDS PID...: wait SECONDS, or until every PID has ended, saying
 # when each ends; as soon as one of them has ended with a failure, stop them
-# all and return 1.
+# all and return 1 (with KEEP_GOING=1: say so, let the others go on, and
+# return 1 at the end).
 watch() {
-  local until=$(( $(date +%s) + $1 )) pid alive; shift
+  local until=$(( $(date +%s) + $1 )) pid alive failed=0; shift
   local -A ended=()
   while :; do
     alive=0
@@ -54,10 +67,13 @@ watch() {
       [ -n "${ended[$pid]:-}" ] && continue
       if kill -0 "$pid" 2>/dev/null; then alive=1; continue; fi
       ended[$pid]=1
-      if ! wait "$pid"; then echo "process $pid failed: stopping"; kill "$@" 2>/dev/null; return 1; fi
+      if ! wait "$pid"; then
+        [ "${KEEP_GOING:-0}" = 1 ] || { echo "process $pid failed: stopping"; kill "$@" 2>/dev/null; return 1; }
+        echo "process $pid failed at $(( $(date +%s) - start )) s"; failed=1; continue
+      fi
       echo "process $pid ended at $(( $(date +%s) - start )) s"
     done
-    [ $alive = 1 ] && [ "$(date +%s)" -lt "$until" ] || return 0
+    [ $alive = 1 ] && [ "$(date +%s)" -lt "$until" ] || return $failed
     sleep 5
   done
 }
@@ -182,8 +198,38 @@ EOF
   done
   echo "recipe pair rc=$rc in $(( $(date +%s) - start )) s"
   ;;
+companion)
+  guard_s=${1:-2100}; work=runs/companion_arms
+  arms=(card_recipe_steps card_recipe_bf16 card_recipe_seed1 card_recipe_drawseed1
+        card_recipe_cutbatch card_cut_cardhands)
+  python -c 'from spherehand_torch import cuda_build as b; b.build_all(b.SOURCES)' || exit 1
+  python -m spherehand_torch.tools.reference_recipe --gen_only --out "$work/seed0" \
+    > "$out/data.log" 2>&1 || { tail -20 "$out/data.log"; exit 1; }
+  tail -1 "$out/data.log"
+  pids=()
+  for arm in "${arms[@]}"; do
+    PYTHONPATH=. python tests/torch_companion_witness.py --work "$work" --arm "$arm" \
+      > "$out/$arm.log" 2>&1 &
+    pids+=($!); echo "$arm runs as process $!"
+  done
+  rc=0
+  KEEP_GOING=1 watch $(( guard_s - ($(date +%s) - start) )) "${pids[@]}" || rc=1
+  for i in "${!pids[@]}"; do
+    if kill -0 "${pids[$i]}" 2>/dev/null; then
+      echo "guard: stopping ${arms[$i]} at $(( $(date +%s) - start )) s"; kill "${pids[$i]}"; rc=1
+    fi
+  done
+  wait
+  for arm in "${arms[@]}"; do
+    [ -f "$work/$arm.json" ] && cp "$work/$arm.json" "$out/"
+    echo "== $arm"; grep -v "^\[engine\]\|^\[[0-9]*-[0-9]*\]:" "$out/$arm.log" | tail -3 | cut -c1-300
+  done
+  [ -d "$work/card_data" ] && tar czf "$out/card_data.tar.gz" -C "$work" card_data
+  PYTHONPATH=. python tests/torch_companion_witness.py --work "$out" --report
+  echo "companion arms rc=$rc in $(( $(date +%s) - start )) s"
+  ;;
 *)
-  echo "usage: card_records.sh lite|divergence|recipe ..." >&2; exit 2;;
+  echo "usage: card_records.sh lite|divergence|recipe|companion ..." >&2; exit 2;;
 esac
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
 exit $rc
