@@ -29,6 +29,8 @@
 #       once it has finished, its trajectory.json go to $RECORDS_DIR/<run>/,
 #       the FROM of the next call, and after them the model_-1.pt of each run
 #       that has not finished (what its resume reads besides the state).
+#       With SEED (not 0; FROM may be ""), the companion alone at --seed
+#       SEED (its own split and draws), as runs/companion_seed<SEED>.
 #   bash spherehand_torch/tools/card_records.sh companion [GUARD_S]
 #       the arms of tests/torch_companion_witness.py that ask where the
 #       companion leaves the JAX record: writes the seed-0 split once
@@ -143,18 +145,25 @@ divergence)
   fi
   ;;
 recipe)
-  guard_s=${1:?usage: card_records.sh recipe GUARD_S [FROM]}; from=${2:-}
-  names=(reference_recipe companion_lr3e5)
-  flags=("--epochs 75" "--lr 3e-5 --epochs 24")
+  guard_s=${1:?usage: card_records.sh recipe GUARD_S [FROM] [SEED]}; from=${2:-}; seed=${3:-0}
+  if [ "$seed" = 0 ]; then
+    names=(reference_recipe companion_lr3e5)
+    flags=("--epochs 75" "--lr 3e-5 --epochs 24")
+  else
+    names=("companion_seed$seed")
+    flags=("--lr 3e-5 --epochs 24 --seed $seed")
+  fi
   for n in "${names[@]}"; do
     if [ -n "$from" ] && [ -d "$from/$n" ]; then
       mkdir -p "runs/$n" && cp -r "$from/$n/." "runs/$n/" && echo "put back runs/$n from $from/$n"
     fi
   done
-  python -m spherehand_torch.tools.reference_recipe --gen_only > "$out/data.log" 2>&1 \
-    || { tail -20 "$out/data.log"; exit 1; }
+  python -m spherehand_torch.tools.reference_recipe --gen_only --seed "$seed" \
+    --out "runs/${names[0]}" > "$out/data.log" 2>&1 || { tail -20 "$out/data.log"; exit 1; }
   tail -2 "$out/data.log"
-  mkdir -p runs/companion_lr3e5 && ln -sfn ../reference_recipe/data runs/companion_lr3e5/data
+  if [ "$seed" = 0 ]; then
+    mkdir -p runs/companion_lr3e5 && ln -sfn ../reference_recipe/data runs/companion_lr3e5/data
+  fi
   pids=(); running=()
   for i in "${!names[@]}"; do
     n=${names[$i]}

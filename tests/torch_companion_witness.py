@@ -128,7 +128,7 @@ JAX_EPOCH0 = 39.0056  # TPU v5e, the JAX record after epoch 0
 NEAR_MM = 2.0         # "within 2 mm of" JAX's epoch 0
 GAP_BAR_MM = 10.0     # the JAX bar: best under before - 10
 CUT_GAIN_MM = 7.0     # what the cut arms closed by step 816 (7.36-11.37 mm)
-CARD_PORT_GAIN_MM = 8.24  # card_port, PR 14
+CARD_PORT_GAIN_MM = 8.24  # what card_port closed over its 816 steps (PERF.md)
 MISS_MM = 3.0         # a cut arm that closes this much less than card_port misses
 CODE_GAP_MM = 3.0     # JAX's loop closing this much more than the port's on one set of hands
 TURN_MM = 44.0        # the steps arm's curve: below this inside epoch 0?
