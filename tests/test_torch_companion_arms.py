@@ -8,7 +8,8 @@ with one change: the split or the draws, bf16 convolutions, the batch, evals
 inside the epochs, and at a cut size the card writer's hands.
 
 The record's conclusion is held to the decision rule written before the
-arms ran (PERF.md section 7), restated here on the record's numbers.
+arms ran (PERF.md's Findings, the companion arms), restated here on the
+record's numbers.
 """
 import json
 import math
@@ -83,7 +84,7 @@ def test_seed1_arm_reads_its_own_split():
 
 
 def _rule(arms, rule):
-    """The decision rule of PERF.md section 7, stated anew."""
+    """The decision rule in PERF.md's Findings, stated anew."""
     def gain(rec, step=None):  # before less the eval at ``step`` (the last)
         mm = {e["step"]: e["mm"] for e in rec["evals"]}
         return rec["evals"][0]["mm"] - mm[rec["evals"][-1]["step"] if step is None else step]
@@ -129,3 +130,40 @@ def test_conclusion_follows_the_rule():
     inside = [e for e in art["arms"]["card_recipe_steps"]["evals"]
               if e["epoch"] == 0 and not e["end"]]
     assert conclusion["shape"]["epoch0_low_mm"] == min(e["mm"] for e in inside)
+
+
+def _seed1():
+    return _load()["seed1_companion"]
+
+
+def test_seed1_companion_ran_to_its_end_on_the_card():
+    """The companion on the seed-1 split and draws, carried over calls of
+    the card to its 24th epoch, repeats the seed-1 arm's evals bit for bit."""
+    run, arm = _seed1(), _load()["arms"]["card_recipe_seed1"]
+    assert run["finished"] and run["steps"] == 24 * 2887
+    config = run["config"]
+    assert (config["seed"], config["lr"], config["epoch"]) == (1, 3e-5, 24)
+    assert config["eval_precision"] == "highest"
+    assert run["backend"].endswith(" W")
+    assert all("NVIDIA H100" in call["backend"] for call in run["calls"])
+    assert run["data_sha256"] == arm["data_sha256"]
+    assert run["launches"]["sphere_fused_bwd"] == run["steps"]
+    assert all(run["launches"].get(k, 0) > 0 for k in PATH_KERNELS), run["launches"]
+    assert [e["mm"] for e in run["trajectory"][:4]] == _mm(arm)
+    assert all(math.isfinite(e["mm"]) for e in run["trajectory"])
+
+
+def test_seed1_companion_closes_domain_gap_at_reference_scale():
+    """The JAX test's gain bars (``tests/test_recipe_artifact.py``) on the
+    seed-1 draw."""
+    traj = _seed1()["trajectory"]
+    before = traj[0]["mm"]
+    best = min(e["mm"] for e in traj[1:])
+    final = traj[-1]["mm"]
+    assert best < before - 10.0, (before, best)
+    assert final < before - 7.0, (before, final)
+
+
+def test_seed1_companion_finishes_stable_at_reference_scale():
+    traj = _seed1()["trajectory"]
+    assert max(e["mm"] for e in traj[1:]) < traj[0]["mm"] + 5.0

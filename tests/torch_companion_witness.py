@@ -63,8 +63,9 @@ kernel launches and its seconds.
 
 ``--report`` prints a line an arm; ``--report --artifact PATH`` also writes
 the record of the companion arms (``tests/goldens/torch_companion_arms.json``)
-with the conclusion that :func:`conclude` draws under the decision rule of
-``PERF.md`` section 7.
+with the conclusion that :func:`conclude` draws under the decision rule in
+``PERF.md``'s Findings (the companion arms), and with ``--full DIR`` the seed-1 companion run to
+its 24th epoch (``card_records.sh recipe GUARD_S FROM 1``).
 
 Run from the repository root; the CPU arms take about 7.5 minutes an epoch
 on one core each; on the card ``card_records.sh companion`` runs the six
@@ -73,7 +74,8 @@ arms of the record in parallel::
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/torch_companion_witness.py --work W --arm write
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/torch_companion_witness.py --work W --arm jax_port
     (and the others; each writes W/<arm>.json)
-    PYTHONPATH=. python tests/torch_companion_witness.py --work W --report [--artifact PATH]
+    PYTHONPATH=. python tests/torch_companion_witness.py --work W --report
+    (with --artifact PATH, and --full DIR: the record)
 """
 from __future__ import annotations
 
@@ -107,14 +109,14 @@ ARMS = CUT_ARMS + ("card_recipe_fp32",) + tuple(RECIPE_ARMS)
 RECORD_ARMS = tuple(RECIPE_ARMS) + ("card_cut_cardhands",)
 CPU_ARMS = ("jax_cardhands", "port_cardhands")
 ISOLATES = {
-    "card_recipe_steps": "(e) where inside epoch 0 the port turns",
-    "card_recipe_bf16": "(d) the training numerics",
-    "card_recipe_seed1": "(c) the split and the draws",
-    "card_recipe_drawseed1": "(c) the draws alone",
-    "card_recipe_cutbatch": "(b) the recipe's batch, at the record's data",
-    "card_cut_cardhands": "(a) the card writer's hands",
-    "jax_cardhands": "(a) JAX's loop on the card's hands",
-    "port_cardhands": "(a) the port's loop on the card's hands, on the CPU",
+    "card_recipe_steps": "where inside epoch 0 the port turns",
+    "card_recipe_bf16": "the training numerics",
+    "card_recipe_seed1": "the split and the draws",
+    "card_recipe_drawseed1": "the draws alone",
+    "card_recipe_cutbatch": "the recipe's batch, at the record's data",
+    "card_cut_cardhands": "the card writer's hands",
+    "jax_cardhands": "JAX's loop on the card's hands",
+    "port_cardhands": "the port's loop on the card's hands, on the CPU",
 }
 LR, EPOCHS_SCHEDULE = 3e-5, 24  # the companion: --lr 3e-5 --epochs 24
 MV_SHARE = 1500 / 2887  # the recipe's is_mv window over its epoch of 72,192 / 25 iterations
@@ -123,7 +125,7 @@ TRAIN, TEST, REAL, SYNT, EPOCHS = 512, 256, 5, 10, 8
 RECIPE_SAMPLES, RECIPE_TEST = 72_192, 2048
 PORT_RECORD = os.path.join(HERE, "goldens", "torch_recipe_at_scale.json")
 
-# The decision rule (PERF.md section 7, written before the arms ran).
+# The decision rule (PERF.md's Findings, the companion arms; written before they ran).
 JAX_EPOCH0 = 39.0056  # TPU v5e, the JAX record after epoch 0
 NEAR_MM = 2.0         # "within 2 mm of" JAX's epoch 0
 GAP_BAR_MM = 10.0     # the JAX bar: best under before - 10
@@ -168,16 +170,16 @@ def write(work: str) -> None:
             print(f"JAX writer: {split} {n} hands in {time.time() - t0:.0f} s", flush=True)
 
 
-def write_card_hands(work: str, device: str = "cuda") -> None:
+def write_card_hands(work: str) -> None:
     """The cut size's train and test hands written by the port's writer on
-    ``device`` into ``W/card_data``."""
+    the card into ``W/card_data``."""
     from spherehand_torch.data import pseudo_real
 
     for split, n, seed in (("train", TRAIN, 0), ("test", TEST, TEST_SEED)):
         out = os.path.join(work, "card_data", split)
         if not os.path.exists(os.path.join(out, "mv_data_0_shape.pkl")):
             t0 = time.time()
-            pseudo_real.generate_pseudo_nyu(out, n, seed, device)
+            pseudo_real.generate_pseudo_nyu(out, n, seed, "cuda")
             print(f"card writer: {split} {n} hands in {time.time() - t0:.1f} s", flush=True)
 
 
@@ -243,7 +245,9 @@ def run_arm(arm: str, work: str) -> dict:
     import pytest
     import torch
 
+    from spherehand_torch.tools import launch_counts, launches_since
     from spherehand_torch.tools.reference_recipe import data_digest
+    from spherehand_torch.tools.selfsup_demo import backend
 
     torch.set_num_threads(1)
     if arm.startswith("card_"):
@@ -252,15 +256,10 @@ def run_arm(arm: str, work: str) -> dict:
         write_card_hands(work)
     data = os.path.join(work, _data_dir(arm))
     model_dir = os.path.join(work, arm)
-    launches = None
     with pytest.MonkeyPatch.context() as monkeypatch:
         engine = _engine(arm, data, model_dir, monkeypatch)
         monkeypatch.setattr(engine, "_dump_train_images", lambda *_a: None)
-        if not arm.startswith("jax_"):
-            from spherehand_torch.tools import launch_counts, launches_since
-
-            before = launch_counts()
-            launches = lambda: launches_since(before)  # noqa: E731
+        before = launch_counts()
         evals, t0 = [], time.time()
         iters = TRAIN // engine.cfg.real_batch
 
@@ -283,13 +282,9 @@ def run_arm(arm: str, work: str) -> dict:
            "synt_batch": cfg.synt_batch, "iters_per_epoch": iters,
            "is_mv_iters": cfg.mv_curriculum_iters, "lr": LR, "evals": evals,
            "steps": EPOCHS * iters, "secs": evals[-1]["secs"], "data_sha256": data_digest(data),
-           "backend": "cpu" if not arm.startswith("card_") else None}
-    if arm.startswith("card_"):
-        from spherehand_torch.tools.selfsup_demo import backend
-
-        rec["backend"] = backend(torch.device("cuda"))
-    if launches is not None:
-        rec["launches"] = launches()
+           "backend": backend(torch.device("cuda" if arm.startswith("card_") else "cpu"))}
+    if not arm.startswith("jax_"):
+        rec["launches"] = launches_since(before)
     return rec
 
 
@@ -382,7 +377,7 @@ def _evals(rec: dict) -> list[float]:
 
 
 def conclude(arms: dict[str, dict]) -> dict:
-    """The decision rule of PERF.md section 7 on the arms' evals."""
+    """The decision rule in PERF.md's Findings on the arms' evals."""
     def before(a):
         return arms[a]["evals"][0]["mm"]
 
@@ -434,9 +429,12 @@ def conclude(arms: dict[str, dict]) -> dict:
     }
 
 
-def artifact(work: str, path: str) -> dict:
-    """The record of the companion arms, with the rule's conclusion."""
+def artifact(work: str, path: str, full: str | None = None) -> dict:
+    """The record of the companion arms, with the rule's conclusion; with
+    ``full``, a ``reference_recipe`` output directory, also that companion
+    run to its end (``seed1_companion``, as ``recipe_artifact`` reads a run)."""
     from spherehand_torch.tools import refuse_golden
+    from spherehand_torch.tools.recipe_artifact import _port_run
 
     refuse_golden(path)
     arms = {}
@@ -444,7 +442,7 @@ def artifact(work: str, path: str) -> dict:
         src = os.path.join(work, f"{arm}.json")
         if os.path.exists(src):
             with open(src) as f:
-                arms[arm] = json.load(f)
+                arms[arm] = {**json.load(f), "isolates": ISOLATES[arm]}
         elif arm in RECORD_ARMS:
             raise FileNotFoundError(f"{src}: the record needs every card arm")
     bad = [a for a, r in arms.items() if not all(math.isfinite(m) for m in _evals(r))]
@@ -457,6 +455,8 @@ def artifact(work: str, path: str) -> dict:
                     "card_port_gain_mm": CARD_PORT_GAIN_MM, "miss_mm": MISS_MM,
                     "code_gap_mm": CODE_GAP_MM, "turn_mm": TURN_MM},
            "arms": arms, "conclusion": conclude(arms)}
+    if full:
+        rec["seed1_companion"] = _port_run(full)
     _write_json(path, rec)
     return rec
 
@@ -490,11 +490,13 @@ def main(argv=None) -> None:
     parser.add_argument("--arm", choices=("write",) + ARMS)
     parser.add_argument("--report", action="store_true")
     parser.add_argument("--artifact", help="with --report: write the companion arms' record here")
+    parser.add_argument("--full", help="with --artifact: the seed-1 companion run's directory "
+                                       "(card_records.sh recipe GUARD_S FROM 1)")
     args = parser.parse_args(argv)
     if args.report:
         report(args.work)
         if args.artifact:
-            print(json.dumps(artifact(args.work, args.artifact)["conclusion"]))
+            print(json.dumps(artifact(args.work, args.artifact, args.full)["conclusion"]))
     elif args.arm == "write":
         write(args.work)
     elif args.arm == "card_recipe_fp32":
