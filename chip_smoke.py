@@ -157,6 +157,14 @@ Phases, each fatal on failure:
      (e) python -m spherehand_torch.doctor: every check passes;
  15. python -m spherehand_torch.bench once: its line holds every key of
      bench.py plus the card's name and power limit, all numbers finite;
+ 15b. serving: python -m spherehand_torch.tools.bench_infer once (B = 1, 8,
+     128 and 1,024; its own timeout): its last line holds every key of the
+     JAX tool's tools/bench_infer.py plus the card's name and power limit,
+     every number finite and positive; and the reference's 2-stack network
+     (tests/goldens/hourglass.npz through convert.reference_hourglass_state)
+     in HourglassNet(num_stacks=2) on the card, TF32 off: both stacks'
+     scores and the latent within the JAX test's atol 2e-3, rtol 1e-3 of the
+     golden (tests/test_torch_evidence.py), the upsample forward launched;
  16. the evidence path (spherehand_torch.tools) at the full widths, short:
      (1) train_synthetic_full, 200 steps at 48 on the StepLR thirds, its
          checkpoint, flat params and history; the mean loss of the last 20
@@ -372,6 +380,17 @@ P14_SERVE_CHUNK = 128
 P14_SERVE_MM = 1e-3
 P14_TIMEOUT_S = 300
 P15_TIMEOUT_S = 600
+# Phase 15b: the serving benchmark's keys (tools/bench_infer.py's per-batch
+# record and line, plus the card's identity) and the 2-stack golden's bars
+# (tests/test_hourglass.py, tests/test_torch_evidence.py).
+P15B_TIMEOUT_S = 300
+P15B_BATCHES = (1, 8, 128, 1024)
+P15B_RESULT_KEYS = ("batch", "device_ms", "wall_ms_scanned", "crops_per_sec_device",
+                    "crops_per_sec_wall")
+P15B_LINE_KEYS = ("metric", "results", "gpu_name", "gpu_power_limit")
+HOURGLASS = os.path.join(ROOT, "tests", "goldens", "hourglass.npz")
+HOURGLASS_META = ("x", "out0", "out1", "latent0", "latent1")
+HOURGLASS_ATOL, HOURGLASS_RTOL = 2e-3, 1e-3
 # Phase 16: the evidence path at the full widths (synt_batch 48, real 25 x
 # 3, eval batch 8), short: 200 synthetic steps (loss of the last 20 below
 # the first 20's), 256 held-out hands (the shipped weights under phase 4's
@@ -1332,6 +1351,68 @@ def bench_phase(smi: str) -> None:
     log(lines[-1])
     log(f"[15] python -m spherehand_torch.bench: {len(record)} keys, all finite | {smi}; "
         f"phase {time.perf_counter() - t0:.2f} s")
+
+
+def serving_phase(dev, smi: str) -> None:
+    """Phase 15b: ``python -m spherehand_torch.tools.bench_infer`` once, its
+    line checked; then the reference's 2-stack network against its golden
+    on the card, TF32 off."""
+    from spherehand_torch import convert
+    from spherehand_torch.infer import float32_precision
+    from spherehand_torch.models.hourglass import HourglassNet
+    from spherehand_torch.ops import upsample
+
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "spherehand_torch.tools.bench_infer",
+                          ",".join(map(str, P15B_BATCHES))], cwd=ROOT, capture_output=True,
+                         text=True, timeout=P15B_TIMEOUT_S)
+    lines = run.stdout.strip().splitlines()
+    if run.returncode != 0 or not lines:
+        fail(f"[15b] bench_infer exited {run.returncode}:\n{run.stdout[-2000:]}\n"
+             f"{run.stderr[-3000:]}")
+    record = json.loads(lines[-1])
+    results = record.get("results", [])
+    missing = [k for k in P15B_LINE_KEYS if k not in record] + [
+        f"B={r.get('batch')}:{k}" for r in results for k in P15B_RESULT_KEYS if k not in r]
+    bad = [f"B={r.get('batch')}:{k}" for r in results for k, v in r.items()
+           if not (isinstance(v, (int, float)) and np.isfinite(v) and v > 0)]
+    batches = [r.get("batch") for r in results]
+    if (missing or bad or record.get("metric") != "serving_latency"
+            or batches != list(P15B_BATCHES)):
+        fail(f"[15b] bench_infer line: missing {missing}, not finite and positive {bad}, "
+             f"batches {batches}: {lines[-1]}")
+    for line in lines:
+        log(line)
+    secs = time.perf_counter() - t0
+
+    # the reference's 2-stack network, TF32 off
+    t1 = time.perf_counter()
+    with np.load(HOURGLASS) as g:
+        golden = {k: np.asarray(g[k]) for k in g.files}
+    state = {k: v for k, v in golden.items() if k not in HOURGLASS_META}
+    network = HourglassNet(num_stacks=2)
+    network.load_state_dict(convert.reference_hourglass_state(state, num_stacks=2))
+    network = network.to(dev).eval()
+    before = upsample.LAUNCHES["upsample2x_fwd"]
+    with torch.no_grad(), float32_precision("highest"):
+        scores, latents = network(torch.from_numpy(golden["x"]).to(dev))
+    torch.cuda.synchronize()
+    launched = upsample.LAUNCHES["upsample2x_fwd"] - before
+    gaps = {}
+    for name, got in (("out0", scores[0]), ("out1", scores[1]), ("latent0", latents[0])):
+        got, want = got.cpu().numpy(), golden[name]
+        excess = np.abs(got - want) - (HOURGLASS_ATOL + HOURGLASS_RTOL * np.abs(want))
+        gaps[name] = (float(np.abs(got - want).max()), float(excess.max()))
+    if len(scores) != 2 or any(e > 0 for _, e in gaps.values()) or launched == 0:
+        fail(f"[15b] 2-stack network against tests/goldens/hourglass.npz (atol "
+             f"{HOURGLASS_ATOL}, rtol {HOURGLASS_RTOL}): (max |gap|, worst excess) {gaps}; "
+             f"stacks {len(scores)}, upsample2x_fwd launches {launched}")
+    log(f"[15b] 2-stack network on the card, TF32 off, against hourglass.npz (atol "
+        f"{HOURGLASS_ATOL}, rtol {HOURGLASS_RTOL}): max |gap| "
+        + ", ".join(f"{k} {v[0]:.3g}" for k, v in gaps.items())
+        + f"; upsample2x_fwd launches {launched}; {time.perf_counter() - t1:.2f} s")
+    log(f"[15b] python -m spherehand_torch.tools.bench_infer: batches {batches}, every number "
+        f"finite and positive, {secs:.2f} s | {smi}; phase {time.perf_counter() - t0:.2f} s")
 
 
 def evidence_phase(model, params, crops_mm, joints, dev, seed: int, smi: str) -> None:
@@ -2442,6 +2523,7 @@ def main() -> int:
 
     # --------------------------------------------------------------- 15
     bench_phase(smi)
+    serving_phase(dev, smi)
 
     # --------------------------------------------------------------- 16
     evidence_phase(model, params, *crops["fast"], dev, args.seed, smi)

@@ -9,13 +9,16 @@
 #       $RECORDS_DIR/torch_lite_mesh_e2e.json; if an arm has not
 #       logged step 8000 after GUARD_S (420) seconds, every arm is
 #       stopped: the run would not end within the hour.
-#   bash spherehand_torch/tools/card_records.sh divergence
+#   bash spherehand_torch/tools/card_records.sh divergence [SEED] [PROBES]
 #       the recipe's pseudo-NYU set (reference_recipe --gen_only), then the
-#       ten divergence_study probes, one process a probe, joined with
-#       --merge into $RECORDS_DIR/torch_divergence_study.json (and
-#       the whole study.json beside it); if a standard probe has not logged
-#       iteration 1300 of its first epoch 600 seconds after the probes
-#       start, every probe is stopped.
+#       divergence_study probes PROBES (a comma list; all ten by default),
+#       one process a probe, joined with --merge into
+#       $RECORDS_DIR/torch_divergence_study.json (and the whole study.json
+#       beside it); if a standard probe has not logged iteration 1300 of its
+#       first epoch 600 seconds after the probes start, every probe is
+#       stopped. With SEED (not 0): seed SEED's own split and draws
+#       (runs/recipe_seed<SEED>/data, runs/div<SEED>_<probe>), the record
+#       $RECORDS_DIR/torch_divergence_seed<SEED>.json.
 #   bash spherehand_torch/tools/card_records.sh recipe GUARD_S [FROM]
 #       the reference recipe pair (reference_recipe), carried over calls:
 #       puts back the runs that FROM holds (what an earlier call of this
@@ -108,23 +111,31 @@ lite)
     --artifact "$out/torch_lite_mesh_e2e.json" && cat "$out/torch_lite_mesh_e2e.json"
   ;;
 divergence)
-  guard_s=600; guard_it=1300
-  python -m spherehand_torch.tools.reference_recipe --gen_only > "$out/data.log" 2>&1 \
-    || { tail -20 "$out/data.log"; exit 1; }
+  guard_s=600; guard_it=1300; seed=${1:-0}
+  all_probes=(stock_instrumented lr_3e-4 lr_1e-4 no_mv_projection no_mv_consistency no_prior
+              no_collision no_bone_length mv_always mv_never)
+  all=$(IFS=,; echo "${all_probes[*]}")
+  IFS=, read -r -a probes <<< "${2:-$all}"
+  if [ "$seed" = 0 ]; then
+    recipe=runs/reference_recipe; runs=runs/div; record=torch_divergence_study.json
+  else
+    recipe=runs/recipe_seed$seed; runs=runs/div$seed; record=torch_divergence_seed$seed.json
+  fi
+  seeded=(--data "$recipe/data" --seed "$seed")
+  python -m spherehand_torch.tools.reference_recipe --gen_only --seed "$seed" --out "$recipe" \
+    > "$out/data.log" 2>&1 || { tail -20 "$out/data.log"; exit 1; }
   tail -1 "$out/data.log"
-  probes=(stock_instrumented lr_3e-4 lr_1e-4 no_mv_projection no_mv_consistency no_prior
-          no_collision no_bone_length mv_always mv_never)
-  all=$(IFS=,; echo "${probes[*]}")
   pstart=$(date +%s)
   pids=()
   for p in "${probes[@]}"; do
     skip=$(echo ",$all," | sed "s/,$p,/,/; s/^,//; s/,$//")
-    python -m spherehand_torch.tools.divergence_study --out "runs/div_$p" --skip "$skip" \
-      > "$out/div_$p.log" 2>&1 &
+    python -m spherehand_torch.tools.divergence_study "${seeded[@]}" --out "${runs}_$p" \
+      --skip "$skip" > "$out/div_$p.log" 2>&1 &
     pids+=($!)
   done
   watch "$guard_s" "${pids[@]}" || { for q in "${probes[@]}"; do tail -5 "$out/div_$q.log"; done; exit 1; }
-  for p in "${probes[@]:1}"; do
+  for p in "${probes[@]}"; do
+    [ "$p" = stock_instrumented ] && continue
     if ! grep -q "^\[0-$guard_it\]" "$out/div_$p.log" && ! grep -q "^\[1-" "$out/div_$p.log"; then
       echo "probe $p has not reached iteration $guard_it after $guard_s s: stopping"
       kill "${pids[@]}" 2>/dev/null
@@ -134,14 +145,18 @@ divergence)
   done
   rc=0
   for pid in "${pids[@]}"; do wait "$pid" || rc=1; done
-  echo "ten probes rc=$rc in $(( $(date +%s) - pstart )) s"
+  echo "${#probes[@]} probes rc=$rc in $(( $(date +%s) - pstart )) s"
   for p in "${probes[@]}"; do echo "== $p"; grep "^\[study\] $p\|^\[study\] stock" "$out/div_$p.log" | tail -3; done
   if [ $rc = 0 ]; then
-    dirs=(); for p in "${probes[@]}"; do dirs+=("runs/div_$p"); done
-    python -m spherehand_torch.tools.divergence_study --out runs/div_all --merge "${dirs[@]}" \
-      --artifact "$out/torch_divergence_study.json" > "$out/div_merge.log" 2>&1 || rc=1
+    dirs=(); for p in "${probes[@]}"; do dirs+=("${runs}_$p"); done
+    # the probes not asked for are skipped, not run, by the merge
+    rest=$(IFS=,; echo ",$all,"); for p in "${probes[@]}"; do rest=${rest/,$p,/,}; done
+    rest=${rest#,}; rest=${rest%,}
+    python -m spherehand_torch.tools.divergence_study "${seeded[@]}" --out "${runs}_all" \
+      --merge "${dirs[@]}" --skip "$rest" --artifact "$out/$record" > "$out/div_merge.log" 2>&1 \
+      || rc=1
     tail -3 "$out/div_merge.log"
-    cp runs/div_all/study.json "$out/divergence_study_full.json"
+    cp "${runs}_all/study.json" "$out/${record%.json}_full.json"
   fi
   ;;
 recipe)

@@ -254,6 +254,7 @@ def run(data: str = os.path.join("runs", "reference_recipe", "data"), samples: i
         golden = {
             "backend": study["backend"],
             "data": study["data"],
+            "seed": seed,
             "stock_lr": STOCK_LR,
             "collapse": collapse,
             "diag_summary": diag_summary,

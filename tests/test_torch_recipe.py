@@ -288,7 +288,10 @@ def test_divergence_study_resumes_and_merges(study, monkeypatch):
         "stock_instrumented"]
     with open(os.path.join(GOLDENS, "divergence_study.json")) as f:
         jax_art = json.load(f)
-    assert set(study["artifact"]) == set(jax_art) | {"launches"}
+    # the JAX record's keys, the port's launches and the seed (the JAX tool
+    # wrote seed 0 only; the port's records are on seeds 0 and 1)
+    assert set(study["artifact"]) == set(jax_art) | {"launches", "seed"}
+    assert study["artifact"]["seed"] == study["common"].get("seed", 0)
     assert set(study["artifact"]["collapse"]) == {"stock_instrumented", "mv_never"}
 
 

@@ -27,7 +27,8 @@ def _one_torch_thread():
 
 def _dict_keys(path: str, functions: dict[str, str]) -> set[str]:
     """The string keys of the dict literals that ``functions`` (name ->
-    "return" or "dumps") return or pass to ``json.dumps``."""
+    "return", "dumps" or "=<variable>") return, pass to ``json.dumps`` or
+    assign to the variable."""
     with open(path) as f:
         tree = ast.parse(f.read())
     keys = set()
@@ -40,6 +41,10 @@ def _dict_keys(path: str, functions: dict[str, str]) -> set[str]:
             elif (functions[fn.name] == "dumps" and isinstance(node, ast.Call)
                   and getattr(node.func, "attr", None) == "dumps"):
                 value = node.args[0]
+            elif (functions[fn.name].startswith("=") and isinstance(node, ast.Assign)
+                  and any(getattr(t, "id", None) == functions[fn.name][1:]
+                          for t in node.targets)):
+                value = node.value
             else:
                 continue
             if isinstance(value, ast.Dict):

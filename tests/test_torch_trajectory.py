@@ -521,8 +521,12 @@ def test_no_departure_over_the_first_steps(runs):
     "tolerance. There the two networks' joints, 0.00226 mm apart, flip one pixel of sphere 13's "
     "silhouette (sq > 1e-2), which carries the mutual projection's gradient gap (20,573 against "
     "15,071); on the same joints the port's term and gradient are JAX's, and JAX's own step on "
-    "the port's joints gives the port's update (tests/test_torch_mv_rounding.py). Step 507 was "
-    "not taken apart"))
+    "the port's joints gives the port's update (tests/test_torch_mv_rounding.py). Step 507 "
+    "(Queue 3 item 8, closed, not a fault) is the same kind: epoch 1, iteration 206, outside the "
+    "is_mv window, its update 25x JAX's control from JAX's; every term agrees on the same "
+    "joints, and the networks' joints, 0.0055 mm apart, flip one pixel of sphere 15's "
+    "silhouette in view 1's own camera, which JAX's step on the port's mv joints reproduces "
+    "(tests/test_torch_mv_step507.py)"))
 def test_no_departure_over_600_steps(tmp_path, hand_model, monkeypatch):
     """(b) 600 steps: 300 an epoch, is_mv for the first 150 of each, the lr
     step between the epochs; JAX's op-by-op control at every step, the free
