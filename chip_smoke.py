@@ -168,7 +168,10 @@ Phases, each fatal on failure:
  16. the evidence path (spherehand_torch.tools) at the full widths, short:
      (1) train_synthetic_full, 200 steps at 48 on the StepLR thirds, its
          checkpoint, flat params and history; the mean loss of the last 20
-         steps below the first 20's;
+         steps below the first 20's; under the deterministic settings, the
+         200 steps straight and stopped at step 100 then resumed from its
+         checkpoint (train_synthetic_full's resume): parameter hashes,
+         losses and launches equal;
      (2) eval_synthetic on 256 held-out noisy hands from that checkpoint,
          and from the shipped weights (under phase 4's 25 mm);
      (3) the shipped weights in the reference's layout
@@ -221,7 +224,25 @@ Phases, each fatal on failure:
      samples card against CPU within phase 13d's 5 % (8 + 3 x 3, TF32 off);
      raster_fast_pooled (the pseudo-NYU writer's fast rule), the fused
      sphere forward, backward and primal and both upsample kernels launched
-     by this phase, each sub-step's seconds printed.
+     by this phase, each sub-step's seconds printed;
+ 19. training at two stacks (EngineConfig(num_stacks=2), the reference's
+     released 2-stack weights from tests/goldens/hourglass.npz):
+     (a) 3 synthetic, 3 combined and 1 eval step at the default widths,
+         every metric finite, each step's launches counted alone and equal
+         to the 1-stack step's with the hourglass's upsamples and the fused
+         sphere forward, backward and primal doubled (once a stack) and
+         raster_fast_pooled as it is (once a synthetic batch);
+     (b) combined_term_diag at 2 stacks card against CPU at phase 8's
+         geometry (8 + 4 x 3, TF32 off): every term's value and gradient
+         norm within phase 13d's 5 %, the largest gap named;
+     (c) CUDA-event ms of synt_step, combined_step and eval_step at 1 and 2
+         stacks, in turns (1, 2, 2, 1);
+     (d) python -m spherehand_torch --num_stacks 2 --epoch 1 on 50 rendered
+         hands as a subprocess: exit 0, a checkpoint that records 2 stacks,
+         finite records; --mode Test --num_stacks 2 on its checkpoint writes
+         a finite result.npz; load_estimator(num_stacks=2) serves the
+         training batch's crops on the card within phase 4's 1e-2 mm of the
+         CPU.
 
 The last three lines of standard output are the kernels JSON line, the card's
 name and power limit, and the result line. Exits non-zero without a GPU. The
@@ -237,6 +258,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -388,6 +410,7 @@ P15B_BATCHES = (1, 8, 128, 1024)
 P15B_RESULT_KEYS = ("batch", "device_ms", "wall_ms_scanned", "crops_per_sec_device",
                     "crops_per_sec_wall")
 P15B_LINE_KEYS = ("metric", "results", "gpu_name", "gpu_power_limit")
+P15B_SPLIT_MS = 2e-4  # the line's rounding: device_ms to 4 decimals
 HOURGLASS = os.path.join(ROOT, "tests", "goldens", "hourglass.npz")
 HOURGLASS_META = ("x", "out0", "out1", "latent0", "latent1")
 HOURGLASS_ATOL, HOURGLASS_RTOL = 2e-3, 1e-3
@@ -399,6 +422,7 @@ HOURGLASS_ATOL, HOURGLASS_RTOL = 2e-3, 1e-3
 # (self-check under 0.5 mm), one adaptation epoch with and without the
 # multi-view terms, the parity drill, 100 steps a lite / full arm.
 P16_SYNT_STEPS = 200
+P16_RESUME_AT = 100  # train_synthetic_full's stop and resume
 P16_LOSS_WINDOW = 20
 P16_HELDOUT = 256
 P16_SHIPPED_MM = 25.0
@@ -1383,6 +1407,27 @@ def serving_phase(dev, smi: str) -> None:
              f"batches {batches}: {lines[-1]}")
     for line in lines:
         log(line)
+    # device_ms leaves the host<->device copies out (as the JAX tool's
+    # program holds none); with the copies' own union it covers the union of
+    # every activity, the copies overlapping the predictor's work by no more
+    # than the sum's excess
+    split = {}
+    for line in lines:
+        m = re.match(r"B=\s*(\d+):.* copies ([\d.]+) ms  union with them ([\d.]+) ms", line)
+        if m:
+            split[int(m.group(1))] = (float(m.group(2)), float(m.group(3)))
+    covered = {}
+    for r in results:
+        copies, union = split.get(r["batch"], (0.0, 0.0))
+        covered[r["batch"]] = {"device_ms": r["device_ms"], "copies_ms": copies,
+                               "union_ms": union,
+                               "overlap_ms": round(r["device_ms"] + copies - union, 4)}
+    if sorted(split) != list(P15B_BATCHES) or not all(
+            c["copies_ms"] > 0 and c["device_ms"] <= c["union_ms"] + P15B_SPLIT_MS
+            and c["overlap_ms"] >= -P15B_SPLIT_MS for c in covered.values()):
+        fail(f"[15b] device_ms without the copies: {json.dumps(covered)}")
+    log(f"[15b] device_ms without the host<->device copies, the copies' ms and the union of "
+        f"both by batch: {json.dumps(covered)}")
     secs = time.perf_counter() - t0
 
     # the reference's 2-stack network, TF32 off
@@ -1461,6 +1506,29 @@ def evidence_phase(model, params, crops_mm, joints, dev, seed: int, smi: str) ->
             f"{run.errors[-1]:.2f} mm; {P16_SYNT_STEPS / run.seconds:.2f} steps/s")
         if not (np.isfinite(run.losses).all() and last < first):
             fail(f"[16] synthetic loss did not fall: {first} -> {last}")
+        # ... and under the tools' deterministic settings, straight and
+        # stopped at step 100 then resumed from its checkpoint
+        t0 = time.perf_counter()
+        saved = determinism.enable()
+        try:
+            kw = dict(device=dev, log_every=P16_SYNT_STEPS)
+            straight = train_synthetic_full.train_synthetic(P16_SYNT_STEPS, **kw)
+            resume = os.path.join(tmp, "resume")
+            train_synthetic_full.train_synthetic(P16_SYNT_STEPS, resume_dir=resume,
+                                                 stop_after=P16_RESUME_AT, **kw)
+            resumed = train_synthetic_full.train_synthetic(P16_SYNT_STEPS, resume_dir=resume, **kw)
+        finally:
+            determinism.restore(saved)
+        hashes = [selfsup_demo.params_sha256(r.state.network) for r in (straight, resumed)]
+        same = (hashes[0] == hashes[1] and np.array_equal(straight.losses, resumed.losses)
+                and straight.launches == resumed.launches)
+        secs["train_synthetic_full_resume"] = time.perf_counter() - t0
+        log(f"[16] (1) deterministic, straight against stopped at step {P16_RESUME_AT} and "
+            f"resumed: parameter hashes {hashes[0][:16]} / {hashes[1][:16]}, losses and launches "
+            f"equal {same} ({json.dumps(resumed.launches)})")
+        if not same:
+            fail(f"[16] train_synthetic_full resume: hashes {hashes}, launches "
+                 f"{straight.launches} / {resumed.launches}")
 
         # (2) held-out eval of that checkpoint and of the shipped weights
         t0 = time.perf_counter()
@@ -1743,6 +1811,208 @@ def recipe_phase(model, params, dev, seed: int, smi: str) -> None:
     log(f"[18] seconds by sub-step: {json.dumps({k: round(v, 2) for k, v in secs.items()})}")
     log(f"[18] launches (counted from 0): {json.dumps(launches)} | {smi}; "
         f"phase {time.perf_counter() - t_phase:.2f} s")
+
+
+# Phase 19: training at two stacks (the reference network's depth, its
+# released weights in tests/goldens/hourglass.npz). The launches a step at 2
+# stacks are held to the 1-stack step's with the stack-looped kernels
+# doubled (the hourglass's upsamples, the mutual projection's fused sphere
+# op) and the synthetic render's as they are; combined_term_diag card
+# against CPU within phase 13d's 5 %; the served checkpoint within phase
+# 4's 1e-2 mm.
+P19_STACKS = 2
+P19_REPS = 10
+
+
+def stacks_phase(model, params, real_batch, dev, seed: int, smi: str) -> None:
+    """Phase 19: training at two stacks through the normal entry points,
+    from the reference's released 2-stack weights (1 stack: the shipped
+    ``params``): the steps and their launches against the 1-stack steps', combined_term_diag card against
+    CPU, the steps timed at 1 and 2 stacks in turns, and the CLI through an
+    epoch, ``--mode Test`` and serving."""
+    import shutil
+    import tempfile
+
+    from spherehand_torch import convert
+    from spherehand_torch.data.nyu import write_shard
+    from spherehand_torch.data.pseudo_real import render_multiview_batch
+    from spherehand_torch.data.synthesizer import synthesize_from_draws
+    from spherehand_torch.hand.assets import load_hand_model
+    from spherehand_torch.infer import float32_precision, load_estimator
+    from spherehand_torch.ops import upsample
+    from spherehand_torch.render import raster_cuda, sphere_cuda
+    from spherehand_torch.train.config import EngineConfig
+    from spherehand_torch.train.steps import RealBatch, build_steps
+
+    t_phase = time.perf_counter()
+    with np.load(HOURGLASS) as g:
+        released = {k: np.asarray(g[k]) for k in g.files if k not in HOURGLASS_META}
+
+    def two_stack_state(fns):
+        state = fns.init_state(torch.Generator().manual_seed(seed))
+        state.network.load_state_dict(convert.reference_hourglass_state(released, P19_STACKS))
+        return state
+
+    def counts() -> dict:
+        torch.cuda.synchronize()
+        return {k: v for k, v in {**raster_cuda.LAUNCHES, **sphere_cuda.LAUNCHES,
+                                  **upsample.LAUNCHES}.items() if v}
+
+    def reset() -> None:
+        torch.cuda.synchronize()
+        raster_cuda.reset_launch_counts()
+        sphere_cuda.reset_launch_counts()
+        upsample.reset_launch_counts()
+
+    # (a) the steps at the default widths, each step's launches counted alone
+    fns = {n: build_steps(EngineConfig(num_stacks=n), hand=model) for n in (1, P19_STACKS)}
+    state = {1: convert.train_state_from_params(fns[1].init_state, params),
+             P19_STACKS: two_stack_state(fns[P19_STACKS])}
+    gen = torch.Generator(device=dev).manual_seed(seed + 190)
+    lr = EngineConfig().lr
+    launches, values = {}, {}
+    for n in (1, P19_STACKS):
+        f, s = fns[n], state[n]
+        for i in range(TRAIN_STEPS):
+            reset()
+            s, m = f.synt_step(s, lr, f.draw(gen, real=False))
+            launches[(n, "synt_step")] = counts()
+            values[(n, f"synt {i}")] = m
+        for i, is_mv in enumerate((True, True, False)):
+            reset()
+            s, m, _ = f.combined_step(s, lr, f.draw(gen), real_batch, is_mv)
+            launches[(n, "combined_step")] = counts()
+            values[(n, f"combined {i} is_mv={is_mv}")] = m
+        reset()
+        m, joints = f.eval_step(s, f.draw(gen, synt=False), real_batch)
+        launches[(n, "eval_step")] = counts()
+        values[(n, "eval")] = m
+        state[n] = s
+        if tuple(joints.shape) != (real_batch.dms.shape[0], 41, 3):
+            fail(f"[19] eval joints at {n} stacks: shape {tuple(joints.shape)}")
+    bad = {f"{n} stacks {k}": {a: float(b) for a, b in m.items()}
+           for (n, k), m in values.items() if not all(bool(torch.isfinite(v)) for v in m.values())}
+    # the count the code gives: the loss runs the mutual projection and the
+    # hourglass's upsamples once a stack, the synthetic render once a step
+    want = {(P19_STACKS, step): {k: v * (1 if k in raster_cuda.LAUNCHES else P19_STACKS)
+                                 for k, v in launches[(1, step)].items()}
+            for step in ("synt_step", "combined_step", "eval_step")}
+    got = {k: v for k, v in launches.items() if k[0] == P19_STACKS}
+    log(f"[19] (a) {TRAIN_STEPS} synt + 3 combined + 1 eval step at {P19_STACKS} stacks, default "
+        f"widths, from the released 2-stack weights: last combined "
+        f"{json.dumps({k: float(v) for k, v in values[(P19_STACKS, 'combined 2 is_mv=False')].items()})}"
+        f"; eval {json.dumps({k: float(v) for k, v in values[(P19_STACKS, 'eval')].items()})}")
+    log(f"[19] (a) launches a step at 1 / {P19_STACKS} stacks: "
+        + "; ".join(f"{step} {json.dumps(launches[(1, step)])} / {json.dumps(got[(P19_STACKS, step)])}"
+                    for step in ("synt_step", "combined_step", "eval_step")))
+    if bad or got != want or not got[(P19_STACKS, "combined_step")].get("sphere_fused_bwd"):
+        fail(f"[19] (a) not finite {bad}; launches at {P19_STACKS} stacks {got}, the code's "
+             f"{want}")
+
+    # (b) combined_term_diag card against CPU at phase 8's geometry, TF32 off
+    t0 = time.perf_counter()
+    with np.load(GRAD_PARITY) as gold:
+        gp = [np.asarray(gold[k], np.float32) for k in ("real_dms", "real_poses", "real_inv_poses")]
+    small = EngineConfig(num_stacks=P19_STACKS, synt_batch=8, real_batch=gp[0].shape[0])
+    side_fns = {"gpu": build_steps(small, hand=model),
+                "cpu": build_steps(small, hand=load_hand_model(device="cpu"))}
+    draws = side_fns["cpu"].draw(torch.Generator().manual_seed(seed + 191))
+    gpu_draws = draws.to(dev)
+    synt = synthesize_from_draws(model, gpu_draws.poses, gpu_draws.synthesis)
+    sides = {}
+    for side, sdev in (("gpu", dev), ("cpu", torch.device("cpu"))):
+        sfns = side_fns[side]
+        sstate = two_stack_state(sfns)
+        sbatch = RealBatch(*(torch.as_tensor(a, device=sdev) for a in
+                             (gp[0], np.zeros(gp[0].shape[:2] + (36, 3), np.float32), gp[1], gp[2])))
+        with float32_precision("highest"):
+            sdiag = sfns.combined_term_diag(sstate, draws.to(sdev), sbatch, True,
+                                            synt=type(synt)(*(x.to(sdev) for x in synt)))
+        sides[side] = {k: float(v) for k, v in sdiag.items()}
+    gaps = {}
+    for key, ref in sides["cpu"].items():
+        if not key.endswith("/cos_total"):
+            got_v = sides["gpu"][key]
+            gaps[key] = 0.0 if got_v == ref else abs(got_v - ref) / max(abs(ref), 1e-30)
+    worst = max(gaps, key=gaps.get)
+    log(f"[19] (b) combined_term_diag at {P19_STACKS} stacks, card against CPU at 8 + "
+        f"{gp[0].shape[0]}x3 (TF32 off, {time.perf_counter() - t0:.2f} s): relative gaps "
+        f"{json.dumps(gaps)}; largest {worst} {gaps[worst]:.4g} (bound {TERM_GPU_CPU_REL})")
+    if gaps[worst] > TERM_GPU_CPU_REL:
+        fail(f"[19] (b) card against CPU term gap {worst} {gaps[worst]}")
+
+    # (c) the steps' CUDA-event ms at 1 and 2 stacks, in turns
+    times: dict = {}
+    for n in (1, P19_STACKS, P19_STACKS, 1):
+        f, s = fns[n], state[n]
+        for step, fn in (
+                ("synt_step", lambda: f.synt_step(s, lr, f.draw(gen, real=False))),
+                ("combined_step", lambda: f.combined_step(s, lr, f.draw(gen), real_batch, True)),
+                ("eval_step", lambda: f.eval_step(s, f.draw(gen, synt=False), real_batch))):
+            times.setdefault(f"{step} {n} stack{'s' if n > 1 else ''}", []).append(
+                round(time_ms(fn, P19_REPS), 3))
+    log(f"[19] (c) CUDA-event median ms of {P19_REPS} calls, turns 1, {P19_STACKS}, "
+        f"{P19_STACKS}, 1 stacks (TF32 on, as the engine trains): {json.dumps(times)} | {smi}")
+
+    # (d) the CLI through an epoch and --mode Test, then serving the checkpoint
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_stacks_")
+    try:
+        g = torch.Generator(device=dev).manual_seed(seed + 192)
+        cfg = EngineConfig()
+        data = os.path.join(tmp, "nyu")
+        for subset, n in (("train", 2 * cfg.real_batch), ("test", cfg.eval_batch)):
+            os.makedirs(os.path.join(data, subset))
+            shard = render_multiview_batch(model, g, n)
+            write_shard(os.path.join(data, subset), "mv_data_0",
+                        *(x.cpu().numpy() for x in (shard.dms, shard.gt_joints, shard.poses)))
+        cli_dir = os.path.join(tmp, "runs")
+        argv = ["--mode", "Train", "--num_stacks", str(P19_STACKS), "--epoch", "1",
+                "--dataset_dir", data, "--model_dir", cli_dir, "--tag", "st_"]
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "spherehand_torch"] + argv, cwd=ROOT,
+                             capture_output=True, text=True, timeout=600)
+        runs = os.listdir(cli_dir) if os.path.isdir(cli_dir) else []
+        made = [r for r in runs if os.path.exists(os.path.join(cli_dir, r, "model_0.pt"))]
+        if run.returncode != 0 or len(made) != 1:
+            fail(f"[19] (d) python -m spherehand_torch {' '.join(argv)} exited {run.returncode}, "
+                 f"runs {runs}:\n{run.stdout[-2000:]}\n{run.stderr[-2000:]}")
+        ckpt = os.path.join(cli_dir, made[0], "model_0.pt")
+        with open(os.path.join(cli_dir, made[0], "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        held = torch.load(ckpt, map_location="cpu", weights_only=True)["num_stacks"]
+        if held != P19_STACKS or not (recs and all(
+                np.isfinite(v) for r in recs for v in r.values() if isinstance(v, float))):
+            fail(f"[19] (d) checkpoint holds {held} stacks; records {recs}")
+        train_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        test_argv = ["--mode", "Test", "--num_stacks", str(P19_STACKS), "--initial_model", ckpt,
+                     "--dataset_dir", data, "--model_dir", cli_dir, "--tag", "st_"]
+        run = subprocess.run([sys.executable, "-m", "spherehand_torch"] + test_argv, cwd=ROOT,
+                             capture_output=True, text=True, timeout=600)
+        results = [os.path.join(r, f) for r, _, fs in os.walk(cli_dir) for f in fs
+                   if f == "result.npz"]
+        if run.returncode != 0 or len(results) != 1:
+            fail(f"[19] (d) --mode Test exited {run.returncode}, results {results}:\n"
+                 f"{run.stdout[-2000:]}\n{run.stderr[-2000:]}")
+        with np.load(results[0]) as res:
+            res_shapes = {k: res[k].shape for k in res.files}
+            finite = all(np.isfinite(res[k]).all() for k in res.files)
+        test_s = time.perf_counter() - t0
+        crops = real_batch.dms.reshape(-1, 64, 64).cpu().numpy()
+        served = {d: load_estimator(ckpt, num_stacks=P19_STACKS, device=d,
+                                    precision="highest").predict(crops)
+                  for d in (dev, torch.device("cpu"))}
+        gap = float(np.abs(served[dev] - served[torch.device("cpu")]).max())
+        log(f"[19] (d) python -m spherehand_torch --num_stacks {P19_STACKS} --epoch 1 on "
+            f"{2 * cfg.real_batch} rendered hands: exit 0 in {train_s:.2f} s, last record "
+            f"{json.dumps(recs[-1])}; --mode Test in {test_s:.2f} s: result.npz {res_shapes}; "
+            f"load_estimator(num_stacks={P19_STACKS}) on {crops.shape[0]} crops, card against "
+            f"CPU max |diff| {gap:.3g} mm (bound {EVAL_SERVE_MAX_MM})")
+        if not finite or not gap <= EVAL_SERVE_MAX_MM:
+            fail(f"[19] (d) result.npz finite {finite}; served card against CPU {gap} mm")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[19] two stacks | {smi}; phase {time.perf_counter() - t_phase:.2f} s")
 
 
 def upsample_phase(fns, state, cfg, real_batch, estimator, dms_mm, dev, seed: int,
@@ -2535,6 +2805,9 @@ def main() -> int:
 
     # --------------------------------------------------------------- 18
     recipe_phase(model, params, dev, args.seed, smi)
+
+    # --------------------------------------------------------------- 19
+    stacks_phase(model, params, real_batch, dev, args.seed, smi)
 
     print(json.dumps({"kernels": kernel_rows}))
     print(smi)

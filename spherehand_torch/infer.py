@@ -159,6 +159,15 @@ def load_params_npz(path: str) -> dict:
     return tree
 
 
+def check_stacks(ckpt: dict, num_stacks: int, path: str) -> None:
+    """Refuse a checkpoint whose recorded stack count is not ``num_stacks``
+    (checkpoints written before the count was recorded are not checked)."""
+    held = ckpt.get("num_stacks", num_stacks)
+    if held != num_stacks:
+        raise ValueError(f"{path} holds a {held}-stack network; asked for {num_stacks} "
+                         "(--num_stacks)")
+
+
 def load_estimator(checkpoint_path: str, num_stacks: int = 1, denoise: bool = True,
                    device: torch.device | str | None = None,
                    precision: str | None = None) -> PoseEstimator:
@@ -168,6 +177,7 @@ def load_estimator(checkpoint_path: str, num_stacks: int = 1, denoise: bool = Tr
     ``convert`` carries JAX parameters across as numpy."""
     dev = resolve_device(device)
     ckpt = torch.load(checkpoint_path, map_location=dev, weights_only=True)
+    check_stacks(ckpt, num_stacks, checkpoint_path)
     network = make_network(num_stacks)
     network.load_state_dict(ckpt["network"])
     return PoseEstimator(network, num_stacks=num_stacks, denoise=denoise, precision=precision,

@@ -62,6 +62,11 @@ def launch_counts() -> dict[str, int]:
     return {**raster_cuda.LAUNCHES, **sphere_cuda.LAUNCHES, **upsample.LAUNCHES}
 
 
+def add_counts(a: dict[str, int], b: dict[str, int]) -> dict[str, int]:
+    """Two launch counts (or counts of anything) summed by key."""
+    return {k: a.get(k, 0) + b.get(k, 0) for k in sorted({*a, *b})}
+
+
 def launches_since(before: dict[str, int]) -> dict[str, int]:
     """The kernels launched since ``before`` (a :func:`launch_counts`), and
     how often; the counters themselves are left as they are."""

@@ -10,8 +10,12 @@ mm from ``np.random.RandomState(0)``), and times each batch size two ways:
 
 - ``device_ms``: the union of the device activities that torch.profiler
   records over 3 ``predict`` calls (``profile_path.device_events`` and
-  ``union_us``), over 3: the per-call device time. B = 1024 runs as
-  ``serve_chunk`` chunks of 128, as ``predict`` does.
+  ``union_us``), the host<->device copies left out, over 3: the per-call
+  device time of the predictor's own work, as the JAX tool's is the time
+  of its ``jit__predict`` program, which holds no transfer. The copies'
+  own ms a call (the pageable crops in, joints and heatmaps out) and the
+  union with them are printed on the batch's line (``split_copies``).
+  B = 1024 runs as ``serve_chunk`` chunks of 128, as ``predict`` does.
 - ``wall_ms_scanned``: the counterpart of the JAX ``lax.scan``: ``ITERS``
   calls of the estimator's device predictor (``_predict_local``; ``_predict``
   itself reads each result back to the host) on the pre-scaled crops plus
@@ -49,6 +53,7 @@ BATCHES = "1,8,128,1024"
 CALLS = 3    # predict calls in the traced window
 ITERS = 50   # calls in a scanned window
 WINDOWS = 3  # scanned windows; the best is kept
+COPIES = ("Memcpy HtoD", "Memcpy DtoH")  # the host<->device copies' activity names
 
 
 def crops(rng: np.random.RandomState, batch: int) -> np.ndarray:
@@ -63,9 +68,21 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def device_ms(est: PoseEstimator, dms: np.ndarray, calls: int = CALLS) -> float:
-    """Device ms a ``predict`` call: the union of the traced activities of
-    ``calls`` calls, over ``calls``."""
+def split_copies(spans) -> tuple[float, float, float]:
+    """(the union of the spans that are not host<->device copies, the union
+    of the copies, the union of all) over ``(name, start, end)`` spans, in
+    their unit."""
+    spans = list(spans)
+    own = [(a, b) for name, a, b in spans if not name.startswith(COPIES)]
+    copies = [(a, b) for name, a, b in spans if name.startswith(COPIES)]
+    return union_us(own), union_us(copies), union_us((a, b) for _, a, b in spans)
+
+
+def device_ms(est: PoseEstimator, dms: np.ndarray,
+              calls: int = CALLS) -> tuple[float, float, float]:
+    """Device ms a ``predict`` call over ``calls`` calls, by ``split_copies``
+    of the traced activities: (its own work, the host<->device copies, the
+    union of both)."""
     from torch.profiler import ProfilerActivity, profile
 
     cuda = est.device.type == "cuda"
@@ -80,7 +97,8 @@ def device_ms(est: PoseEstimator, dms: np.ndarray, calls: int = CALLS) -> float:
         events = (device_events(prof) if cuda else
                   [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU])
         if events:
-            return union_us((e.time_range.start, e.time_range.end) for e in events) / 1e3 / calls
+            return tuple(us / 1e3 / calls for us in split_copies(
+                (e.name, e.time_range.start, e.time_range.end) for e in events))
     raise RuntimeError("bench_infer: the profiler recorded no device activity")
 
 
@@ -115,11 +133,20 @@ def scanned_wall_ms(est: PoseEstimator, dms: np.ndarray, iters: int = ITERS,
 
 def measure_batch(est: PoseEstimator, dms: np.ndarray, calls: int = CALLS, iters: int = ITERS,
                   windows: int = WINDOWS) -> dict:
-    """One batch's record: the JAX tool's keys."""
+    """One batch's record, the JAX tool's keys, printed on a line with the
+    copies' ms and the union with them; raises if a number is not finite
+    and positive."""
     batch = dms.shape[0]
     est.predict(dms)  # warm-up
-    dev_ms = device_ms(est, dms, calls)
+    dev_ms, copies_ms, union_ms = device_ms(est, dms, calls)
     wall_ms = scanned_wall_ms(est, dms, iters, windows)
+    if not all(math.isfinite(v) and v > 0 for v in (dev_ms, wall_ms)):
+        raise RuntimeError(f"bench_infer: B = {batch}: device {dev_ms} ms, wall {wall_ms} ms: "
+                           "not finite and positive")
+    print(f"B={batch:5d}: {dev_ms:7.3f} ms device  {wall_ms:7.3f} ms wall(scan)  "
+          f"{round(batch / dev_ms * 1e3):10,d} crops/s dev  "
+          f"{round(batch / wall_ms * 1e3):10,d} crops/s wall  copies {copies_ms:.4f} ms  "
+          f"union with them {union_ms:.4f} ms", flush=True)
     return {
         "batch": batch,
         "device_ms": round(dev_ms, 4),
@@ -141,21 +168,11 @@ def identity(device: torch.device) -> dict:
 
 def run(batches: list[int], device: torch.device | str | None = None, calls: int = CALLS,
         iters: int = ITERS, windows: int = WINDOWS) -> dict:
-    """Every batch's record and the card's identity, printing a line a
-    batch; raises if a number is not finite and positive."""
+    """Every batch's record (``measure_batch``) and the card's identity."""
     dev = resolve_device(device)
     est = PoseEstimator(load_params_npz(PARAMS), num_stacks=1, denoise=True, device=dev)
     rng = np.random.RandomState(0)
-    results = []
-    for b in batches:
-        rec = measure_batch(est, crops(rng, b), calls, iters, windows)
-        bad = [k for k, v in rec.items() if not (math.isfinite(v) and v > 0)]
-        if bad:
-            raise RuntimeError(f"bench_infer: B = {b}: {bad} not finite and positive: {rec}")
-        results.append(rec)
-        print(f"B={b:5d}: {rec['device_ms']:7.3f} ms device  {rec['wall_ms_scanned']:7.3f} ms "
-              f"wall(scan)  {rec['crops_per_sec_device']:10,d} crops/s dev  "
-              f"{rec['crops_per_sec_wall']:10,d} crops/s wall", flush=True)
+    results = [measure_batch(est, crops(rng, b), calls, iters, windows) for b in batches]
     return {"results": results, **identity(dev)}
 
 

@@ -9,6 +9,16 @@
 #       $RECORDS_DIR/torch_lite_mesh_e2e.json; if an arm has not
 #       logged step 8000 after GUARD_S (420) seconds, every arm is
 #       stopped: the run would not end within the hour.
+#   bash spherehand_torch/tools/card_records.sh lite_resume GUARD_S [FROM] [ARM] [STEPS]
+#       one arm ARM (full_bf16) of lite_mesh_e2e at STEPS (75000), carried
+#       over calls through train_synthetic_full's resume: puts back the
+#       resume files that FROM holds (what an earlier call of this mode wrote
+#       to its $RECORDS_DIR) under runs/lite_resume/ARM, trains until the arm
+#       ends or GUARD_S seconds after the start, then copies its resume.json
+#       and, unless it has finished, its resume.pt to $RECORDS_DIR/ARM, the
+#       FROM of the next call. A finished arm's artifact is joined with
+#       --merge to the committed tests/goldens/torch_lite_mesh_e2e.json into
+#       $RECORDS_DIR/torch_lite_mesh_e2e.json (the committed arms as they are).
 #   bash spherehand_torch/tools/card_records.sh divergence [SEED] [PROBES]
 #       the recipe's pseudo-NYU set (reference_recipe --gen_only), then the
 #       divergence_study probes PROBES (a comma list; all ten by default),
@@ -109,6 +119,34 @@ lite)
   for arm in "${arms[@]}"; do echo "== $arm"; tail -5 "$out/lite_$arm.log"; parts+=("$out/lite_$arm.json"); done
   [ $rc = 0 ] && python -m spherehand_torch.tools.lite_mesh_e2e --merge "${parts[@]}" \
     --artifact "$out/torch_lite_mesh_e2e.json" && cat "$out/torch_lite_mesh_e2e.json"
+  ;;
+lite_resume)
+  guard_s=${1:?usage: card_records.sh lite_resume GUARD_S [FROM] [ARM] [STEPS]}; from=${2:-}
+  arm=${3:-full_bf16}; steps=${4:-75000}; dir=runs/lite_resume; art=runs/lite_$arm.json
+  if [ -n "$from" ] && [ -d "$from/$arm" ]; then
+    mkdir -p "$dir/$arm" && cp -r "$from/$arm/." "$dir/$arm/" && echo "put back $dir/$arm from $from/$arm"
+  fi
+  rm -f "$art"
+  python -m spherehand_torch.tools.lite_mesh_e2e --steps "$steps" --arms "$arm" --resume "$dir" \
+    --artifact "$art" > "$out/lite_$arm.log" 2>&1 &
+  pid=$!
+  rc=0
+  watch $(( guard_s - ($(date +%s) - start) )) "$pid" || rc=1
+  if kill -0 "$pid" 2>/dev/null; then
+    echo "guard: stopping $arm at $(( $(date +%s) - start )) s"; kill "$pid"
+  fi
+  wait
+  grep -E "^(resumed|step)" "$out/lite_$arm.log" | tail -3; tail -3 "$out/lite_$arm.log"
+  mkdir -p "$out/$arm"
+  [ -f "$dir/$arm/resume.json" ] && cp "$dir/$arm/resume.json" "$out/$arm/" && cat "$out/$arm/resume.json"
+  if [ -f "$art" ]; then
+    cp "$art" "$out/"
+    python -m spherehand_torch.tools.lite_mesh_e2e --merge tests/goldens/torch_lite_mesh_e2e.json \
+      "$art" --artifact "$out/torch_lite_mesh_e2e.json" && cat "$out/torch_lite_mesh_e2e.json" || rc=1
+  elif [ -f "$dir/$arm/resume.pt" ]; then
+    cp "$dir/$arm/resume.pt" "$out/$arm/"
+  fi
+  echo "lite arm $arm rc=$rc in $(( $(date +%s) - start )) s"
   ;;
 divergence)
   guard_s=600; guard_it=1300; seed=${1:-0}
@@ -253,7 +291,7 @@ companion)
   echo "companion arms rc=$rc in $(( $(date +%s) - start )) s"
   ;;
 *)
-  echo "usage: card_records.sh lite|divergence|recipe|companion ..." >&2; exit 2;;
+  echo "usage: card_records.sh lite|lite_resume|divergence|recipe|companion ..." >&2; exit 2;;
 esac
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
 exit $rc

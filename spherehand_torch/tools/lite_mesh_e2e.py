@@ -11,12 +11,15 @@ step earlier) and is evaluated in float32 with TF32 off on 2048 held-out
 noisy full-mesh renders (``eval_synthetic.heldout_errors``).
 
 Usage: python -m spherehand_torch.tools.lite_mesh_e2e [--steps N] [--arms lite,full]
-       [--artifact PATH] [--seed S] [--device cpu]
+       [--artifact PATH] [--seed S] [--resume DIR] [--device cpu]
        python -m spherehand_torch.tools.lite_mesh_e2e --merge A.json B.json ... --artifact PATH
 
 The arms are independent, so they may train in separate processes sharing
 the card (one ``--arms`` each); ``--merge`` joins their artifacts, which
-must agree on ``steps`` and ``seed``, into one. Besides the JAX tool's keys
+must agree on ``steps`` and ``seed``, into one. With ``--resume DIR`` each
+arm trains through ``train_synthetic_full``'s resume in ``DIR/<arm>``, so a
+run stopped anywhere is carried on by the same command (an arm longer than
+one call). Besides the JAX tool's keys
 the artifact holds ``seed``, ``backend`` (the card's name and power limit,
 as nvidia-smi gives them) and ``launches`` (the port's kernel launch
 counters over the run), and the run prints the last two as a JSON line.
@@ -37,7 +40,13 @@ import torch
 
 from spherehand_torch.device import resolve_device
 from spherehand_torch.hand.assets import load_hand_model
-from spherehand_torch.tools import GOLDENS, launch_counts, launches_since, refuse_golden
+from spherehand_torch.tools import (
+    GOLDENS,
+    add_counts,
+    launch_counts,
+    launches_since,
+    refuse_golden,
+)
 from spherehand_torch.tools.eval_synthetic import heldout_errors
 from spherehand_torch.tools.selfsup_demo import backend
 from spherehand_torch.tools.train_synthetic_full import train_synthetic
@@ -48,26 +57,31 @@ GOLDEN = os.path.join(GOLDENS, "lite_mesh_e2e.json")  # the JAX record, never wr
 
 def run_arms(arms: list[str], num_steps: int, artifact: str, batch: int = 48,
              eval_samples: int = 2048, eval_batch: int = 128,
-             device: torch.device | str | None = None, seed: int = 0) -> dict:
+             device: torch.device | str | None = None, seed: int = 0,
+             resume_dir: str | None = None) -> dict:
     """Train (from ``seed``, ``train_synthetic``'s) and evaluate each arm;
     writes and returns {"steps", "seed", "backend", "launches", arm:
-    {"train_secs", "heldout_mm"}}."""
+    {"train_secs", "heldout_mm"}}. ``resume_dir``: each arm's training
+    resumes from, and checkpoints into, ``resume_dir/<arm>``; its seconds
+    and launches are those of every call."""
     refuse_golden(artifact)
     dev = resolve_device(device)
     full = load_hand_model(device=dev)
-    before = launch_counts()
+    launches: dict[str, int] = {}
     result = {"steps": num_steps, "seed": seed, "backend": backend(dev)}
     for arm in arms:
         mesh, _, suffix = arm.partition("_")
         run = train_synthetic(num_steps, batch, mesh, bf16=suffix == "bf16", device=dev,
-                              seed=seed)
+                              seed=seed, resume_dir=resume_dir and os.path.join(resume_dir, arm))
         network = run.state.network
         network.set_dtype(torch.float32)  # evaluated as the JAX tool's make_network(1)
+        before = launch_counts()
         err = float(heldout_errors(network, full, eval_samples, eval_batch).mean())
+        launches = add_counts(add_counts(launches, run.launches), launches_since(before))
         print(f"[{arm}] {num_steps} steps in {run.seconds:.1f}s; held-out joint error on "
               f"full-mesh renders: {err:.2f} mm", flush=True)
         result[arm] = {"train_secs": round(run.seconds, 1), "heldout_mm": round(err, 3)}
-    result["launches"] = launches_since(before)
+    result["launches"] = launches
     print(json.dumps({"backend": result["backend"], "launches": result["launches"]}), flush=True)
     _write(artifact, result)
     return result
@@ -113,6 +127,8 @@ def main(argv: list[str] | None = None) -> None:
                          "tests/goldens/torch_lite_mesh_e2e.json; never a JAX record)")
     ap.add_argument("--seed", type=int, default=0,
                     help="training seed (0: the JAX tool's keys; others: another reading)")
+    ap.add_argument("--resume", metavar="DIR",
+                    help="train each arm through train_synthetic_full's resume in DIR/<arm>")
     ap.add_argument("--device", default="cuda", help="torch device (cpu: the plain path)")
     ap.add_argument("--merge", nargs="+", metavar="JSON",
                     help="join these per-arm artifacts into --artifact, and train nothing")
@@ -127,7 +143,7 @@ def main(argv: list[str] | None = None) -> None:
         return
     determinism.enable()
     run_arms(args.arms.split(","), args.steps, args.artifact, device=args.device,
-             seed=args.seed)
+             seed=args.seed, resume_dir=args.resume)
     print("wrote", os.path.abspath(args.artifact))
 
 

@@ -60,7 +60,7 @@ from spherehand_torch.data.pseudo_real import (
 )
 from spherehand_torch.device import resolve_device
 from spherehand_torch.infer import load_params_npz
-from spherehand_torch.tools import launch_counts, launches_since, refuse_golden
+from spherehand_torch.tools import add_counts, launch_counts, launches_since, refuse_golden
 from spherehand_torch.tools.selfsup_demo import (
     PRETRAINED,
     TEST_SEED_OFFSET,
@@ -103,10 +103,6 @@ def _fresh_state(data_sha256: str) -> dict:
     state records it, with the train seconds and launches through it."""
     return {"next_epoch": 0, "trajectory": [], "run_name": None, "train_secs": 0.0, "steps": 0,
             "data_sha256": data_sha256, "launches": {}, "pending": None, "calls": []}
-
-
-def _add(a: dict[str, int], b: dict[str, int]) -> dict[str, int]:
-    return {k: a.get(k, 0) + b.get(k, 0) for k in sorted({*a, *b})}
 
 
 def run(out: str = os.path.join("runs", "reference_recipe"), samples: int = 72_192,
@@ -178,7 +174,7 @@ def run(out: str = os.path.join("runs", "reference_recipe"), samples: int = 72_1
 
     def launches() -> dict[str, int]:
         """The run's launches: the earlier calls' and this call's since ``before``."""
-        return _add(base, launches_since(before))
+        return add_counts(base, launches_since(before))
 
     def save_state() -> None:
         call.update(next_epoch=rstate["next_epoch"],

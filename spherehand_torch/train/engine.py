@@ -54,6 +54,7 @@ from spherehand_torch.constants import Constants
 from spherehand_torch.data.nyu import NyuDataset, NyuLoader
 from spherehand_torch.device import resolve_device
 from spherehand_torch.hand.assets import HandModel, load_hand_model
+from spherehand_torch.infer import check_stacks
 from spherehand_torch.losses.multitask import LOSS_WEIGHTS
 from spherehand_torch.parallel.mesh import RankGroup, temporal_ranks
 from spherehand_torch.train.config import EngineConfig
@@ -106,13 +107,23 @@ def step_seed(seed: int, epoch: int, it: int) -> int:
 def save_state(path: str, state, epoch: int) -> None:
     """A train state as the engine's checkpoint file (``torch.save``,
     written whole or not at all): the network and optimizer state, the
-    step, the temporal-loss state and ``epoch``, the epoch it holds;
-    ``infer.load_estimator`` serves it."""
+    step, the temporal-loss state, ``epoch``, the epoch it holds, and
+    ``num_stacks``, the network's stack count; ``infer.load_estimator``
+    serves it."""
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save({"network": state.network.state_dict(), "optimizer": state.optimizer.state_dict(),
                 "step": state.step, "prev_skel": state.prev_skel, "has_prev": state.has_prev,
-                "epoch": epoch}, tmp)
+                "epoch": epoch, "num_stacks": state.network.num_stacks}, tmp)
     os.replace(tmp, path)
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, state: dict) -> None:
+    """A saved optimizer state into ``optimizer``. Adam (not capturable)
+    keeps its step counts on the CPU and reads them there; on the card a
+    count would cost a sync a parameter."""
+    optimizer.load_state_dict(state)
+    for param_state in optimizer.state.values():
+        param_state["step"] = param_state["step"].cpu()
 
 
 def _prefetch(iterable, depth: int = 2):
@@ -352,14 +363,11 @@ class Engine:
         ``weights_only``), as engine.py:446-460."""
         path = self._checkpoint_path(which) if isinstance(which, int) else which
         ckpt = torch.load(path, map_location=self.device, weights_only=True)
+        check_stacks(ckpt, self.cfg.num_stacks, path)
         self.state.network.load_state_dict(ckpt["network"])
         if weights_only:
             return
-        self.state.optimizer.load_state_dict(ckpt["optimizer"])
-        # Adam (not capturable) keeps its step counts on the CPU and reads
-        # them there; on the card a count would cost a sync a parameter.
-        for param_state in self.state.optimizer.state.values():
-            param_state["step"] = param_state["step"].cpu()
+        load_optimizer_state(self.state.optimizer, ckpt["optimizer"])
         self.state.step = int(ckpt["step"])
         self.state.prev_skel = ckpt["prev_skel"]
         self.state.has_prev = ckpt["has_prev"]

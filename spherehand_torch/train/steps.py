@@ -369,9 +369,11 @@ def build_steps(cfg: EngineConfig, hand: HandModel | None = None,
     def _metrics(loss, terms) -> dict:
         return {"loss": loss.detach(), **{k: v.detach() for k, v in terms.items()}}
 
-    def synt_step(state: TrainState, lr: float, draws: StepDraws):
-        """Synthetic-only pretraining step (engine.py:265-316)."""
-        synt = _synt(draws, None)
+    def synt_step(state: TrainState, lr: float, draws: StepDraws,
+                  synt: SyntheticBatch | None = None):
+        """Synthetic-only pretraining step (engine.py:265-316). ``synt``: a
+        synthetic batch to train on in place of the one ``draws`` render."""
+        synt = _synt(draws, synt)
         loss, terms, out, _ = _loss(state, synt, None, None, None, draws, True)
         _backward(state, loss)
         _apply_updates(state, lr)
@@ -444,10 +446,12 @@ def build_steps(cfg: EngineConfig, hand: HandModel | None = None,
         diag["param_norm"] = _global_norm([p.detach() for p in params])
         return diag
 
-    def combined_step(state: TrainState, lr: float, draws: StepDraws, batch: RealBatch, is_mv):
-        """Mixed synthetic + real self-supervised step (engine.py:318-436)."""
+    def combined_step(state: TrainState, lr: float, draws: StepDraws, batch: RealBatch, is_mv,
+                      synt: SyntheticBatch | None = None):
+        """Mixed synthetic + real self-supervised step (engine.py:318-436).
+        ``synt``: as ``synt_step``'s."""
         loss, terms, out, new_prev, synt, scaled_real = _combined(
-            state, draws, batch, is_mv, True, None)
+            state, draws, batch, is_mv, True, synt)
         _apply_updates(state, lr, new_prev)
         metrics = _metrics(loss, terms)
         metrics["avg_joint_error"] = average_joint_error(
