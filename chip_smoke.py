@@ -160,7 +160,9 @@ Phases, each fatal on failure:
  15b. serving: python -m spherehand_torch.tools.bench_infer once (B = 1, 8,
      128 and 1,024; its own timeout): its last line holds every key of the
      JAX tool's tools/bench_infer.py plus the card's name and power limit,
-     every number finite and positive; and the reference's 2-stack network
+     every number finite and positive, the host<->device copies' ms on
+     each batch's line, and from B = 128 on device_ms (the copies left out)
+     under the scanned wall; and the reference's 2-stack network
      (tests/goldens/hourglass.npz through convert.reference_hourglass_state)
      in HourglassNet(num_stacks=2) on the card, TF32 off: both stacks'
      scores and the latent within the JAX test's atol 2e-3, rtol 1e-3 of the
@@ -410,7 +412,7 @@ P15B_BATCHES = (1, 8, 128, 1024)
 P15B_RESULT_KEYS = ("batch", "device_ms", "wall_ms_scanned", "crops_per_sec_device",
                     "crops_per_sec_wall")
 P15B_LINE_KEYS = ("metric", "results", "gpu_name", "gpu_power_limit")
-P15B_SPLIT_MS = 2e-4  # the line's rounding: device_ms to 4 decimals
+P15B_UNDER_WALL = 128  # from this batch on, device_ms (no copies) reads under the wall
 HOURGLASS = os.path.join(ROOT, "tests", "goldens", "hourglass.npz")
 HOURGLASS_META = ("x", "out0", "out1", "latent0", "latent1")
 HOURGLASS_ATOL, HOURGLASS_RTOL = 2e-3, 1e-3
@@ -1408,9 +1410,9 @@ def serving_phase(dev, smi: str) -> None:
     for line in lines:
         log(line)
     # device_ms leaves the host<->device copies out (as the JAX tool's
-    # program holds none); with the copies' own union it covers the union of
-    # every activity, the copies overlapping the predictor's work by no more
-    # than the sum's excess
+    # program holds none): the copies are measured apart at every batch, and
+    # from P15B_UNDER_WALL on, where they take ms a call, device_ms reads
+    # under the scanned wall (with them it read over it, PR 16)
     split = {}
     for line in lines:
         m = re.match(r"B=\s*(\d+):.* copies ([\d.]+) ms  union with them ([\d.]+) ms", line)
@@ -1420,11 +1422,11 @@ def serving_phase(dev, smi: str) -> None:
     for r in results:
         copies, union = split.get(r["batch"], (0.0, 0.0))
         covered[r["batch"]] = {"device_ms": r["device_ms"], "copies_ms": copies,
-                               "union_ms": union,
+                               "union_ms": union, "wall_ms": r["wall_ms_scanned"],
                                "overlap_ms": round(r["device_ms"] + copies - union, 4)}
     if sorted(split) != list(P15B_BATCHES) or not all(
-            c["copies_ms"] > 0 and c["device_ms"] <= c["union_ms"] + P15B_SPLIT_MS
-            and c["overlap_ms"] >= -P15B_SPLIT_MS for c in covered.values()):
+            c["copies_ms"] > 0 and (b < P15B_UNDER_WALL or c["device_ms"] < c["wall_ms"])
+            for b, c in covered.items()):
         fail(f"[15b] device_ms without the copies: {json.dumps(covered)}")
     log(f"[15b] device_ms without the host<->device copies, the copies' ms and the union of "
         f"both by batch: {json.dumps(covered)}")
@@ -1514,8 +1516,25 @@ def evidence_phase(model, params, crops_mm, joints, dev, seed: int, smi: str) ->
             kw = dict(device=dev, log_every=P16_SYNT_STEPS)
             straight = train_synthetic_full.train_synthetic(P16_SYNT_STEPS, **kw)
             resume = os.path.join(tmp, "resume")
-            train_synthetic_full.train_synthetic(P16_SYNT_STEPS, resume_dir=resume,
-                                                 stop_after=P16_RESUME_AT, **kw)
+            real_lr, real_every = train_synthetic_full.learning_rate, train_synthetic_full.SAVE_EVERY
+
+            class Stop(Exception):
+                pass
+
+            def stop_at(step, num_steps):
+                if step == P16_RESUME_AT:
+                    raise Stop
+                return real_lr(step, num_steps)
+
+            train_synthetic_full.learning_rate = stop_at
+            train_synthetic_full.SAVE_EVERY = P16_RESUME_AT
+            try:
+                train_synthetic_full.train_synthetic(P16_SYNT_STEPS, resume_dir=resume, **kw)
+            except Stop:
+                pass
+            finally:
+                train_synthetic_full.learning_rate = real_lr
+                train_synthetic_full.SAVE_EVERY = real_every
             resumed = train_synthetic_full.train_synthetic(P16_SYNT_STEPS, resume_dir=resume, **kw)
         finally:
             determinism.restore(saved)

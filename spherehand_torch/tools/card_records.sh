@@ -3,22 +3,22 @@
 # sharing the card (OMP_NUM_THREADS=1 each), under the tools' deterministic
 # settings, seed 0. Run from the repository root:
 #
-#   bash spherehand_torch/tools/card_records.sh lite [STEPS] [ARMS] [GUARD_S]
+#   bash spherehand_torch/tools/card_records.sh lite [STEPS] [ARMS] [GUARD_S] [FROM] [STOP_S]
 #       the arms ARMS (lite,full) of lite_mesh_e2e at STEPS (75000), one
-#       process an arm, joined with --merge into
-#       $RECORDS_DIR/torch_lite_mesh_e2e.json; if an arm has not
-#       logged step 8000 after GUARD_S (420) seconds, every arm is
-#       stopped: the run would not end within the hour.
-#   bash spherehand_torch/tools/card_records.sh lite_resume GUARD_S [FROM] [ARM] [STEPS]
-#       one arm ARM (full_bf16) of lite_mesh_e2e at STEPS (75000), carried
-#       over calls through train_synthetic_full's resume: puts back the
-#       resume files that FROM holds (what an earlier call of this mode wrote
-#       to its $RECORDS_DIR) under runs/lite_resume/ARM, trains until the arm
-#       ends or GUARD_S seconds after the start, then copies its resume.json
-#       and, unless it has finished, its resume.pt to $RECORDS_DIR/ARM, the
-#       FROM of the next call. A finished arm's artifact is joined with
-#       --merge to the committed tests/goldens/torch_lite_mesh_e2e.json into
-#       $RECORDS_DIR/torch_lite_mesh_e2e.json (the committed arms as they are).
+#       process an arm, each through train_synthetic_full's resume in
+#       runs/lite_resume/<arm>, so an arm longer than one call is carried
+#       over calls: first the resume files that FROM/<arm> holds (what an
+#       earlier call of this mode wrote to its $RECORDS_DIR) are put back.
+#       If an arm has neither ended nor logged the step 8000 past where it
+#       started (in the log's thousands) after GUARD_S (420) seconds, every
+#       arm is stopped: it runs too slowly. STOP_S seconds after the start
+#       (0, the default: never), the arms still going are stopped. Then each
+#       arm's resume.json and, unless the arm has finished, its resume.pt go
+#       to $RECORDS_DIR/<arm>, the FROM of the next call. Once every arm has
+#       finished, their artifacts are joined with --merge into
+#       $RECORDS_DIR/torch_lite_mesh_e2e.json, with the committed
+#       tests/goldens/torch_lite_mesh_e2e.json (its arms as they are) when
+#       that record is of STEPS and holds none of ARMS.
 #   bash spherehand_torch/tools/card_records.sh divergence [SEED] [PROBES]
 #       the recipe's pseudo-NYU set (reference_recipe --gen_only), then the
 #       divergence_study probes PROBES (a comma list; all ten by default),
@@ -96,57 +96,59 @@ watch() {
 case "$what" in
 lite)
   steps=${1:-75000}; IFS=, read -r -a arms <<< "${2:-lite,full}"
-  guard_s=${3:-420}; guard_step=8000
-  pids=()
+  guard_s=${3:-420}; from=${4:-}; stop_s=${5:-0}; guard_step=8000; dir=runs/lite_resume
+  record=tests/goldens/torch_lite_mesh_e2e.json
+  pids=(); parts=()
   for arm in "${arms[@]}"; do
-    python -m spherehand_torch.tools.lite_mesh_e2e --steps "$steps" --arms "$arm" \
+    if [ -n "$from" ] && [ -d "$from/$arm" ]; then
+      mkdir -p "$dir/$arm" && cp -r "$from/$arm/." "$dir/$arm/" && echo "put back $dir/$arm from $from/$arm"
+    fi
+    rm -f "$out/lite_$arm.json"
+    python -m spherehand_torch.tools.lite_mesh_e2e --steps "$steps" --arms "$arm" --resume "$dir" \
       --artifact "$out/lite_$arm.json" > "$out/lite_$arm.log" 2>&1 &
-    pids+=($!)
+    pids+=($!); parts+=("$out/lite_$arm.json")
   done
   watch "$guard_s" "${pids[@]}" || { for a in "${arms[@]}"; do tail -20 "$out/lite_$a.log"; done; exit 1; }
   for arm in "${arms[@]}"; do
-    if ! grep -qE "^step +$guard_step:" "$out/lite_$arm.log" && ! grep -q "held-out" "$out/lite_$arm.log"; then
-      echo "arm $arm has not reached step $guard_step after $guard_s s: stopping"
+    first=$(sed -n 's/^resumed at step \([0-9]*\) .*/\1/p' "$out/lite_$arm.log")
+    want=$(( (${first:-0} + guard_step) / 1000 * 1000 ))
+    [ "$want" -lt "$steps" ] || want=$(( steps - 1 ))
+    if ! grep -qE "^step +$want:" "$out/lite_$arm.log" && ! grep -q "held-out" "$out/lite_$arm.log"; then
+      echo "arm $arm has not reached step $want after $guard_s s: stopping"
       kill "${pids[@]}" 2>/dev/null
       for a in "${arms[@]}"; do echo "== $a"; tail -4 "$out/lite_$a.log"; done
       exit 5
     fi
   done
   rc=0
-  for p in "${pids[@]}"; do wait "$p" || rc=1; done
+  if [ "$stop_s" -gt 0 ]; then
+    watch $(( stop_s - ($(date +%s) - start) )) "${pids[@]}" || rc=1
+  fi
+  for i in "${!pids[@]}"; do
+    if [ $rc = 0 ] && kill -0 "${pids[$i]}" 2>/dev/null && [ "$stop_s" -gt 0 ]; then
+      echo "guard: stopping ${arms[$i]} at $(( $(date +%s) - start )) s"; kill "${pids[$i]}"
+      wait "${pids[$i]}"
+    else
+      wait "${pids[$i]}" || rc=1
+    fi
+  done
   echo "${#arms[@]} arms rc=$rc in $(( $(date +%s) - start )) s"
-  parts=()
-  for arm in "${arms[@]}"; do echo "== $arm"; tail -5 "$out/lite_$arm.log"; parts+=("$out/lite_$arm.json"); done
-  [ $rc = 0 ] && python -m spherehand_torch.tools.lite_mesh_e2e --merge "${parts[@]}" \
-    --artifact "$out/torch_lite_mesh_e2e.json" && cat "$out/torch_lite_mesh_e2e.json"
-  ;;
-lite_resume)
-  guard_s=${1:?usage: card_records.sh lite_resume GUARD_S [FROM] [ARM] [STEPS]}; from=${2:-}
-  arm=${3:-full_bf16}; steps=${4:-75000}; dir=runs/lite_resume; art=runs/lite_$arm.json
-  if [ -n "$from" ] && [ -d "$from/$arm" ]; then
-    mkdir -p "$dir/$arm" && cp -r "$from/$arm/." "$dir/$arm/" && echo "put back $dir/$arm from $from/$arm"
+  ended=1
+  for arm in "${arms[@]}"; do
+    echo "== $arm"; tail -5 "$out/lite_$arm.log"
+    mkdir -p "$out/$arm"
+    [ -f "$dir/$arm/resume.json" ] && cp "$dir/$arm/resume.json" "$out/$arm/"
+    if [ ! -f "$out/lite_$arm.json" ]; then
+      ended=0; [ -f "$dir/$arm/resume.pt" ] && cp "$dir/$arm/resume.pt" "$out/$arm/"
+    fi
+  done
+  if [ $rc = 0 ] && [ $ended = 1 ]; then
+    base=$(python -c 'import json, sys; r = json.load(open(sys.argv[1]))
+print(sys.argv[1] if r["steps"] == int(sys.argv[2]) and not set(sys.argv[3:]) & set(r) else "")' \
+      "$record" "$steps" "${arms[@]}")
+    python -m spherehand_torch.tools.lite_mesh_e2e --merge $base "${parts[@]}" \
+      --artifact "$out/torch_lite_mesh_e2e.json" && cat "$out/torch_lite_mesh_e2e.json" || rc=1
   fi
-  rm -f "$art"
-  python -m spherehand_torch.tools.lite_mesh_e2e --steps "$steps" --arms "$arm" --resume "$dir" \
-    --artifact "$art" > "$out/lite_$arm.log" 2>&1 &
-  pid=$!
-  rc=0
-  watch $(( guard_s - ($(date +%s) - start) )) "$pid" || rc=1
-  if kill -0 "$pid" 2>/dev/null; then
-    echo "guard: stopping $arm at $(( $(date +%s) - start )) s"; kill "$pid"
-  fi
-  wait
-  grep -E "^(resumed|step)" "$out/lite_$arm.log" | tail -3; tail -3 "$out/lite_$arm.log"
-  mkdir -p "$out/$arm"
-  [ -f "$dir/$arm/resume.json" ] && cp "$dir/$arm/resume.json" "$out/$arm/" && cat "$out/$arm/resume.json"
-  if [ -f "$art" ]; then
-    cp "$art" "$out/"
-    python -m spherehand_torch.tools.lite_mesh_e2e --merge tests/goldens/torch_lite_mesh_e2e.json \
-      "$art" --artifact "$out/torch_lite_mesh_e2e.json" && cat "$out/torch_lite_mesh_e2e.json" || rc=1
-  elif [ -f "$dir/$arm/resume.pt" ]; then
-    cp "$dir/$arm/resume.pt" "$out/$arm/"
-  fi
-  echo "lite arm $arm rc=$rc in $(( $(date +%s) - start )) s"
   ;;
 divergence)
   guard_s=600; guard_it=1300; seed=${1:-0}
@@ -291,7 +293,7 @@ companion)
   echo "companion arms rc=$rc in $(( $(date +%s) - start )) s"
   ;;
 *)
-  echo "usage: card_records.sh lite|lite_resume|divergence|recipe|companion ..." >&2; exit 2;;
+  echo "usage: card_records.sh lite|divergence|recipe|companion ..." >&2; exit 2;;
 esac
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
 exit $rc

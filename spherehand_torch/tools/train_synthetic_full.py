@@ -105,16 +105,13 @@ def _resume(resume_dir: str, settings: dict, state: TrainState, dev) -> dict | N
 
 def train_synthetic(num_steps: int, batch: int = 48, mesh: str = "full", bf16: bool = False,
                     device: torch.device | str | None = None,
-                    log_every: int = LOG_EVERY, seed: int = 0, resume_dir: str | None = None,
-                    save_every: int = SAVE_EVERY,
-                    stop_after: int | None = None) -> SyntheticRun | None:
+                    log_every: int = LOG_EVERY, seed: int = 0,
+                    resume_dir: str | None = None) -> SyntheticRun:
     """``num_steps`` synthetic steps at ``batch`` on ``mesh`` ("full" or
     "lite"), bfloat16 convolutions under ``bf16``, from ``seed``.
 
     ``resume_dir``: carry the run on from its checkpoint there, if any, and
-    write one every ``save_every`` steps. ``stop_after``: leave after that
-    many steps, their checkpoint written, and return None (the stop of a
-    process killed there)."""
+    write one every ``SAVE_EVERY`` steps."""
     dev = resolve_device(device)
     cfg = EngineConfig(synt_batch=batch, num_stacks=1, mesh=mesh, bf16=bf16)
     steps = build_steps(cfg, load_hand_model(device=dev, lite=mesh == "lite"))
@@ -176,10 +173,8 @@ def train_synthetic(num_steps: int, batch: int = 48, mesh: str = "full", bf16: b
             history.append(rec)
             print(f"step {i:6d}: loss {rec['loss']:10.2f}  err {rec['synt_joint_err_mm']:6.2f} mm"
                   f"  lr {lr:.1e}", flush=True)
-        if resume_dir is not None and ((i + 1) % save_every == 0 or i + 1 == stop_after):
+        if resume_dir is not None and (i + 1) % SAVE_EVERY == 0:
             checkpoint(i + 1)
-        if i + 1 == stop_after:
-            return None
     seconds, launches = flush()
     return SyntheticRun(state, history, torch.cat(trace[0]).numpy(),
                         torch.cat(trace[1]).numpy(), seconds, launches)

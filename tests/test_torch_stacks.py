@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+import optax  # noqa: E402
 
 from spherehand_tpu.data.noise import _rowwise_uniform  # noqa: E402
 from spherehand_tpu.data.sampler import sample_poses as jsample_poses  # noqa: E402
@@ -242,6 +243,87 @@ def test_combined_step_matches_jax(setup, hand_model):
     _assert_adam_step(state, jstate)
 
 
+def _assert_grads_match(ours: dict, theirs: dict):
+    """Leaf by leaf, as tests/test_torch_train.py holds the 1-stack gradient
+    against the reference's: each gradient's norm within 5 % and its first
+    16 entries within 10 % of theirs plus 2e-3 of the norm."""
+    assert ours.keys() == theirs.keys()
+    assert {"inter_fc0/kernel", "inter_score0/kernel", "score1/kernel"} <= ours.keys()
+    for k, g in theirs.items():
+        g = np.asarray(g, np.float64).reshape(-1)
+        mine = np.asarray(ours[k], np.float64).reshape(-1)
+        norm = np.linalg.norm(g)
+        assert norm > 0 and abs(np.linalg.norm(mine) - norm) <= 0.05 * norm, k
+        assert np.linalg.norm(mine[:16] - g[:16]) <= 0.1 * np.linalg.norm(g[:16]) + 2e-3 * norm, k
+
+
+def test_combined_grads_and_term_diag_match_jax(setup, hand_model):
+    """The combined objective's gradient at 2 stacks against ``jax.vjp`` of
+    JAX's (``steps.py:298-338``: its forward and ``multitask_loss`` on the
+    draws of ``test_combined_step_matches_jax``, one one-hot cotangent a
+    term and one all-ones): ``combined_grads`` leaf by leaf as
+    ``_assert_grads_match``, and ``combined_term_diag``'s values within
+    rtol 1e-5 (2e-4 for the mutual projection), its gradient norms, each
+    term's and the total's, within rtol 1e-2 (tests/test_torch_term_diag.py's
+    bars, without its atol: the prior's norm is a millionth of the total's,
+    and each term's norm is held on its own). The synthetic step's terms (``synt_uv``, ``synt_d``) are terms of
+    this objective, through both stacks. ``collision``'s value is left out
+    as in ``_assert_step_terms`` (its hinge edge), its gradient norm is not.
+    A stack detached from a term, or a stack's share of the mutual
+    projection or the prior lost from the backward, moves that term's norm
+    by far more."""
+    key = jax.random.key(12)
+    _, _, _, k_aug, k_prior = jax.random.split(key, 5)
+    synt, draws = _combined_inputs(setup, hand_model, key)
+    batch, jstate = setup["batch"], setup["jstate"]
+    jsynt = JSyntheticBatch(*(jnp.asarray(a.numpy()) for a in synt))
+    target = {"real_dms": jnp.asarray(batch.dms.numpy()),
+              "camera_poses": jnp.asarray(batch.poses.numpy()),
+              "inv_camera_poses": jnp.asarray(batch.inv_poses.numpy())}
+    net = jest.make_network(STACKS)
+    vae_params = jvae.load_pose_vae_params()
+    loss_cfg = JEngineConfig(num_stacks=STACKS).loss_config
+
+    def terms_fn(p):
+        out = jest.forward(net, p, synt_dms=jsynt.dms,
+                           real_dms=target["real_dms"] * Constants().depth_scale, rng=k_aug,
+                           train=True, real_aug=True)
+        terms, _, _ = jmt.multitask_loss(
+            loss_cfg, out, hand_model.kp_radius, vae_params=vae_params, synt_target=jsynt,
+            real_target=target, rng=k_prior, is_mv=jnp.asarray(True),
+            prev_skel=jstate.prev_skel, has_prev=jstate.has_prev)
+        return terms
+
+    names = sorted(jax.eval_shape(terms_fn, jstate.params))
+
+    @jax.jit
+    def reference(p):
+        terms, vjp_fn = jax.vjp(terms_fn, p)
+        cots = {n: jnp.asarray([1.0 if m == n else 0.0 for m in names] + [1.0]) for n in names}
+        (grads,) = jax.vmap(vjp_fn)(cots)
+        return terms, jax.vmap(optax.global_norm)(grads), jax.tree.map(lambda g: g[-1], grads)
+
+    terms, norms, total = reference(jstate.params)
+    ref_norm = dict(zip(names + ["total"], np.asarray(norms).tolist()))
+
+    state = _port_state(setup)
+    _, values, grads = setup["fns"].combined_grads(state, draws, batch, True, synt=synt)
+    _assert_grads_match(convert.flax_arrays(grads),
+                        convert.flatten_params(jax.tree.map(np.asarray, total)))
+    diag = setup["fns"].combined_term_diag(state, draws, batch, True, synt=synt)
+    assert sorted(k[:-len("/value")] for k in diag if k.endswith("/value")) == names
+    assert {"mv_projection", "pose_prior"} <= set(names)
+    for name in names:
+        rtol = 2e-4 if name == "mv_projection" else 1e-5
+        for got in (values[name], diag[f"{name}/value"]):
+            if name != "collision":
+                np.testing.assert_allclose(float(got), float(terms[name]), atol=1e-6, rtol=rtol,
+                                           err_msg=name)
+        np.testing.assert_allclose(float(diag[f"{name}/grad_norm"]), ref_norm[name], rtol=1e-2,
+                                   err_msg=name)
+    np.testing.assert_allclose(float(diag["total_grad_norm"]), ref_norm["total"], rtol=1e-2)
+
+
 def test_terms_and_each_stacks_share_at_fixed_outputs(setup, hand_model):
     """The port's estimator outputs at 2 stacks equal JAX's ``forward`` on
     the same parameters and inputs (per stack, in JAX's order), and on those
@@ -377,8 +459,9 @@ def test_engine_epoch_cli_test_mode_and_serving_at_two_stacks(tmp_path, port_han
     """A synthetic epoch takes ``synt_iters_per_epoch`` x ``num_stacks``
     steps (JAX engine.py:601); its checkpoint records 2 stacks, refuses a
     1-stack load, runs the CLI's ``--mode Test --num_stacks 2`` into
-    ``result.npz``, and serves through ``load_estimator(num_stacks=2)``
-    with JAX's estimator on the converted parameters within 1e-4 mm."""
+    ``result.npz`` (every array finite), and serves three crops through
+    ``load_estimator(num_stacks=2)``: finite joints of the right shape (the
+    comparison with JAX's estimator is the next test's)."""
     data = _shards(tmp_path)
     kw = dict(mode="Train", model_dir=str(tmp_path / "runs"), dataset_dir=data, epoch=1,
               real_batch=2, synt_batch=2, eval_batch=2, synt_iters_per_epoch=2, tag="s_",
@@ -451,32 +534,54 @@ def test_bench_infer_leaves_the_copies_out():
     assert bench_infer.split_copies([]) == (0.0, 0.0, 0.0)
 
 
-def test_train_synthetic_full_resumes_bit_for_bit(tmp_path):
-    """Stopped at step 3 of 5 and resumed, or stopped between a checkpoint
-    and the state that records it: the straight run's parameters, losses,
-    errors and history, bit for bit; other settings are refused."""
-    kw = dict(batch=2, device="cpu", log_every=2)
-    straight = train_synthetic_full.train_synthetic(5, **kw)
-    stop = str(tmp_path / "stop")
-    assert train_synthetic_full.train_synthetic(5, resume_dir=stop, save_every=2,
-                                                stop_after=3, **kw) is None
-    with open(os.path.join(stop, "resume.json")) as f:
-        assert json.load(f)["step"] == 3
-    resumed = train_synthetic_full.train_synthetic(5, resume_dir=stop, save_every=2, **kw)
+class _Stop(Exception):
+    """A process killed at this point."""
 
-    # the state announces step 4, the checkpoint holds it, the state was not rewritten
+
+def test_train_synthetic_full_resumes_bit_for_bit(tmp_path, monkeypatch):
+    """Checkpoints every 2 steps. Stopped before step 3 of 5, its checkpoint
+    at step 2, and resumed; or stopped between the checkpoint of step 4 and
+    the state that records it: the straight run's parameters, losses,
+    errors and history, bit for bit; other settings are refused."""
+    tsf = train_synthetic_full
+    kw = dict(batch=2, device="cpu", log_every=2)
+    straight = tsf.train_synthetic(5, **kw)
+    monkeypatch.setattr(tsf, "SAVE_EVERY", 2)
+    learning_rate, write_json = tsf.learning_rate, tsf._write_json
+
+    def stop_at_3(step, num_steps):
+        if step == 3:
+            raise _Stop
+        return learning_rate(step, num_steps)
+
+    stop = str(tmp_path / "stop")
+    monkeypatch.setattr(tsf, "learning_rate", stop_at_3)
+    with pytest.raises(_Stop):
+        tsf.train_synthetic(5, resume_dir=stop, **kw)
+    monkeypatch.setattr(tsf, "learning_rate", learning_rate)
+    with open(os.path.join(stop, "resume.json")) as f:
+        assert json.load(f)["step"] == 2
+    resumed = tsf.train_synthetic(5, resume_dir=stop, **kw)
+
+    def stop_recording_4(path, obj):
+        if obj["step"] == 4 and obj["pending"] is None:
+            raise _Stop
+        write_json(path, obj)
+
     between = str(tmp_path / "between")
-    train_synthetic_full.train_synthetic(5, resume_dir=between, save_every=2, stop_after=4, **kw)
-    state_file = os.path.join(between, "resume.json")
-    with open(state_file) as f:
+    monkeypatch.setattr(tsf, "_write_json", stop_recording_4)
+    with pytest.raises(_Stop):
+        tsf.train_synthetic(5, resume_dir=between, **kw)
+    monkeypatch.setattr(tsf, "_write_json", write_json)
+    with open(os.path.join(between, "resume.json")) as f:
         rstate = json.load(f)
-    with open(state_file, "w") as f:
-        json.dump({**rstate, "step": 2, "pending": 4}, f)
-    carried = train_synthetic_full.train_synthetic(5, resume_dir=between, save_every=2, **kw)
+    assert (rstate["step"], rstate["pending"]) == (2, 4)
+    assert torch.load(os.path.join(between, "resume.pt"), weights_only=True)["step"] == 4
+    carried = tsf.train_synthetic(5, resume_dir=between, **kw)
     for run in (resumed, carried):
         assert params_sha256(run.state.network) == params_sha256(straight.state.network)
         assert np.array_equal(run.losses, straight.losses) and len(run.losses) == 5
         assert np.array_equal(run.errors, straight.errors)
         assert run.history == straight.history
     with pytest.raises(RuntimeError, match="other settings"):
-        train_synthetic_full.train_synthetic(6, resume_dir=stop, **kw)
+        tsf.train_synthetic(6, resume_dir=stop, **kw)
